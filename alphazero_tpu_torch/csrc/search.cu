@@ -1,8 +1,11 @@
-// Search kernels of the whole-chunk self-play (one thread per game).
+// Search kernels of the whole-chunk self-play and of the move search (one
+// thread per game).
 //
 // Replaces: alphazero_tpu/search/pallas_fused.py:_chunk_kernel (the Pallas
-// kernel that plays M whole self-play moves per launch), except its dense
-// forward, which is csrc/dense_forward.cu.  The stages:
+// kernel that plays M whole self-play moves per launch) and _move_kernel
+// (one move's simulations from a host-evaluated root, which the arena and
+// the gate run), except their dense forward, which is csrc/dense_forward.cu.
+// The chunk's stages:
 //   az_root_obs      canonical root observation (+ its int8 record)
 //   az_root_init     Dirichlet mix, legal mask, root edges, tree init
 //   az_descend_leaf  PUCT walk with the leaf board built in the walk, leaf
@@ -13,6 +16,11 @@
 //   az_move_tail     root counts and root Q, inverse-CDF / argmax action,
 //                    env step, records, reset (pallas_fused._root_counts,
 //                    _sample_from_counts and the end of _chunk_kernel)
+// The move search runs az_move_root_init (root from the host's prior, value
+// and live flag: a finished game's root stays unexpanded, so every
+// simulation ends at the root as a terminal leaf), then az_descend_leaf /
+// the forward / az_apply per simulation as above, then az_root_counts
+// (counts, policy and root Q; pallas_fused._root_counts).
 //
 // Bound on this card: none of them moves more than a few hundred KB or does
 // more than a few thousand operations per game (bounds well under 1 µs at
@@ -308,6 +316,55 @@ __global__ void move_tail_kernel(
   }
 }
 
+// ---- the move search (pallas_fused._move_kernel): the root comes from the
+// host, then the sims above, then the root counts.
+
+// Thread i < B·N writes tree row element (b, n) = (i / N, i % N) of
+// visit/val, coalesced; thread i < B·A also writes root edge (i / A, i % A).
+__global__ void move_root_init_kernel(float* visit, float* val,
+                                      int32_t* child, float* prior,
+                                      const float* root_prior,
+                                      const float* value,
+                                      const uint8_t* live, int B, int N,
+                                      int A) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B * N) {
+    const int b = i / N, n = i % N;
+    const bool lv = live[b] != 0;
+    visit[i] = n == 0 ? (lv ? 1.5f : 1.0f) : 0.0f;
+    val[i] = (n == 0 && lv) ? -value[b] : 0.0f;
+  }
+  if (i < B * A) {
+    const int b = i / A, a = i % A;
+    const float rp = root_prior[i];
+    const bool ok = rp > -1e29f;
+    child[(size_t)b * N * A + a] = ok ? NO_CHILD : ILLEGAL;
+    prior[(size_t)b * N * A + a] = ok ? qprior(rp) : 0.0f;
+  }
+}
+
+__global__ void root_counts_kernel(const float* visit, const float* val,
+                                   const int32_t* child, int32_t* counts,
+                                   float* policy, float* root_q, int B, int N,
+                                   int A) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* vs = visit + (size_t)b * N;
+  const int32_t* ch0 = child + (size_t)b * N * A;
+  int cnt[MAX_A];
+  int tot = 0;
+  for (int a = 0; a < A; ++a) {
+    const int c = ch0[a];
+    cnt[a] = c >= 0 ? (int)floorf(vs[c]) : 0;
+    counts[(size_t)b * A + a] = cnt[a];
+    tot += cnt[a];
+  }
+  const float total = (float)max(tot, 1);
+  for (int a = 0; a < A; ++a)
+    policy[(size_t)b * A + a] = __fdiv_rn((float)cnt[a], total);
+  root_q[b] = __fdiv_rn(val[(size_t)b * N], fmaxf(floorf(vs[0]), 1.0f));
+}
+
 constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -382,6 +439,27 @@ int az_move_tail(const void* visit, const void* val, const void* child,
       (const int32_t*)lines, (float*)r_policy, (int32_t*)r_player,
       (int32_t*)r_t, (int32_t*)r_action, (uint8_t*)r_done, (int32_t*)r_winner,
       (float*)r_rootq, B, N, A, R, C, L, K, max_moves, temperature_moves);
+  return (int)cudaGetLastError();
+}
+
+int az_move_root_init(void* visit, void* val, void* child, void* prior,
+                      const void* root_prior, const void* value,
+                      const void* live, int B, int N, int A, void* stream) {
+  const int n = N > A ? B * N : B * A;
+  move_root_init_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
+      (const float*)root_prior, (const float*)value, (const uint8_t*)live, B,
+      N, A);
+  return (int)cudaGetLastError();
+}
+
+int az_root_counts(const void* visit, const void* val, const void* child,
+                   void* counts, void* policy, void* root_q, int B, int N,
+                   int A, void* stream) {
+  if (A > MAX_A) return (int)cudaErrorInvalidValue;
+  root_counts_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)visit, (const float*)val, (const int32_t*)child,
+      (int32_t*)counts, (float*)policy, (float*)root_q, B, N, A);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,11 @@
-"""Replay storage."""
+"""Replay storage and augmentation."""
 
+from alphazero_tpu_torch.data.augment import Symmetries
 from alphazero_tpu_torch.data.replay import (ReplayBuffer, add_games, create,
-                                             num_rows, num_rows_augmented)
+                                             gather_sample, num_rows,
+                                             num_rows_augmented, sample,
+                                             sample_indices)
 
-__all__ = ["ReplayBuffer", "add_games", "create", "num_rows",
-           "num_rows_augmented"]
+__all__ = ["ReplayBuffer", "Symmetries", "add_games", "create",
+           "gather_sample", "num_rows", "num_rows_augmented", "sample",
+           "sample_indices"]

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``data/replay.py``: a finished game's
 trajectory slab (observations and root policies of up to ``L =
 env.max_moves`` moves, its length and winner) is written as one block of a
-ring.  Sampling, augmentation and value targets come with the learner.
+ring.  Sampling draws a game ∝ its length, a move in it and a symmetry, and
+rebuilds the value target from the winner and the move's parity.  The
+sharded multi-ring layout is module 12 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -85,3 +87,58 @@ def num_rows_augmented(buf: ReplayBuffer, num_syms: int,
     l = buf.length.long()
     return (torch.clamp(l, max=skip) + torch.clamp(l - skip, min=0) * num_syms
             ).sum()
+
+
+def sample_indices(buf: ReplayBuffer, batch_size: int, *, generator,
+                   num_syms: int = 1, augment_skip: int = 0):
+    """Draw ``(g, r, s)`` per row: the game with probability ∝ its length
+    (game 0 when the buffer is empty), the move ``randint % length``, and
+    the group element, uniform over ``num_syms`` and the identity for moves
+    before ``augment_skip``."""
+    dev = buf.length.device
+    length = buf.length.long()
+    weights = length.clamp(min=0).to(torch.float32)
+    first = torch.zeros_like(weights)
+    first[0] = 1.0
+    weights = torch.where((length > 0).any(), weights, first)
+    g = torch.multinomial(weights, batch_size, replacement=True,
+                          generator=generator)
+    r = torch.randint(0, 1 << 30, (batch_size,), generator=generator,
+                      device=dev) % length[g].clamp(min=1)
+    if num_syms > 1:
+        s = torch.randint(0, num_syms, (batch_size,), generator=generator,
+                          device=dev)
+        s = torch.where(r < augment_skip, 0, s)
+    else:
+        s = torch.zeros_like(r)
+    return g, r, s
+
+
+def gather_sample(buf: ReplayBuffer, g, r, s=None, syms=None):
+    """Rows ``(g, r)`` under group elements ``s`` → ``obs (bs, F, R, C)``
+    float32, ``policy (bs, A)`` and ``value (bs,)``: the game's outcome
+    from the row's player, who is ``r % 2`` (self-play games open with
+    player 0)."""
+    obs = buf.obs[g, r].to(torch.float32)
+    pol = buf.policy[g, r]
+    w = buf.winner[g].long()
+    val = torch.where(w < 0, 0.0, torch.where(r % 2 == w, 1.0, -1.0)
+                      ).to(torch.float32)
+    if syms is not None and syms.num > 1:
+        cp = syms.cell_perms[s]                           # (bs, RC)
+        ap = syms.action_perms[s]                         # (bs, A)
+        flat = obs.reshape(obs.shape[:-2] + (cp.shape[-1],))
+        obs = torch.gather(flat, -1, cp[:, None, :].expand_as(flat)
+                           ).reshape(obs.shape)
+        pol = torch.gather(pol, -1, ap)
+    return obs, pol, val
+
+
+def sample(buf: ReplayBuffer, batch_size: int, *, generator, syms=None,
+           augment_skip: int = 0):
+    """Uniform position sample with the symmetry drawn per row: the JAX
+    package's single-device ``sample``."""
+    num = syms.num if syms is not None else 1
+    g, r, s = sample_indices(buf, batch_size, generator=generator,
+                             num_syms=num, augment_skip=augment_skip)
+    return gather_sample(buf, g, r, s, syms)

@@ -26,12 +26,15 @@ def build_model(cfg: ModelConfig, env) -> DenseTower:
 def make_eval_fn(model: DenseTower, params: dict):
     """Batched evaluator ``obs (B, F, R, C) → (softmax over ALL actions,
     value)``.  There is no legality mask: illegal actions' priors are never
-    selected by the search."""
+    selected by the search.  ``eval_fn.dense_spec = (model, params)`` lets
+    ``search.mcts.run_mcts`` dispatch to the whole-move search."""
 
+    @torch.no_grad()
     def eval_fn(obs):
         logits, value = functional_call(model, params, (obs,))
         return torch.softmax(logits, dim=-1), value
 
+    eval_fn.dense_spec = (model, params)
     return eval_fn
 
 

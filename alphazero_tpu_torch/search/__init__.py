@@ -1,1 +1,1 @@
-"""Whole-chunk self-play search."""
+"""MCTS: the whole-chunk self-play search and the move search."""

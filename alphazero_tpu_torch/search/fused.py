@@ -1,8 +1,9 @@
-"""Whole-chunk self-play search: M moves of MCTS with the dense network.
+"""MCTS with the dense network: the whole-chunk self-play and the move search.
 
 Counterpart of the JAX package's ``search/pallas_fused.py``
-(``run_selfplay_chunk_fused`` and its Pallas ``_chunk_kernel``).  Per move,
-for all B games:
+(``run_selfplay_chunk_fused`` with its Pallas ``_chunk_kernel``, and
+``run_mcts_fused`` with its Pallas ``_move_kernel``).  Per chunk move, for
+all B games:
 
   root observation → dense forward → Dirichlet mix → legal mask → tree init
   → S−1 × (PUCT descent with the leaf board built in the walk → dense
@@ -10,11 +11,16 @@ for all B games:
   (inverse-CDF sample on a supplied uniform before ``temperature_moves``,
   first argmax after) → env step → records → reset of finished games.
 
+The move search (:func:`run_mcts_fused`, what the arena and the gate run)
+evaluates and mixes the root on the host, initialises the tree from that
+prior with finished games left unexpanded, runs the same S−1 simulations
+and returns the root counts, policy and root Q.
+
 Each stage is a hand-written CUDA kernel (``csrc/search.cu``,
 ``csrc/dense_forward.cu``) with its plain PyTorch version beside it in this
 module.  A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  :func:`run_selfplay_chunk`
-sequences the stages from the host.
+and :func:`run_mcts_fused` sequence the stages from the host.
 
 The tree lives in device memory with games in rows: ``visit``/``val``
 ``(B, N)`` float32 with N = S+1, edges ``child (B, N, A)`` int32 (node id,
@@ -45,8 +51,8 @@ from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import _make_line_matrix, line_cells
 from alphazero_tpu_torch.ops.build import CudaKernel
+from alphazero_tpu_torch.search.mcts import NEG, SearchResult, prep_priors
 
-NEG = -1e30
 NO_CHILD = -1
 ILLEGAL = -2
 # columns of the pending-leaf record written by the descent
@@ -508,6 +514,41 @@ def move_tail_reference(env, cfg: MCTSConfig, tree: Tree, u, board, player,
     mc.copy_(torch.where(done, torch.zeros_like(mc), mc1))
 
 
+def move_root_init_reference(tree: Tree, root_prior, value, live):
+    """Tree init of the move search from the host's root: ``root_prior (B,
+    A)`` (``NEG`` where an action is illegal or the game finished), the root
+    ``value (B,)`` and ``live (B,)`` bool.  Root visit ``1 + 0.5·live`` (a
+    finished game's root stays unexpanded), ``val = -value`` for live games
+    and 0 otherwise; an edge is legal iff its prior is > -1e29 and then holds
+    the quantized prior."""
+    ok = root_prior > -1e29
+    zero = torch.zeros_like(value)
+    tree.visit.zero_()
+    tree.val.zero_()
+    tree.visit[:, 0] = torch.where(live, zero + 1.5, zero + 1.0)
+    tree.val[:, 0] = torch.where(live, -value, zero)
+    tree.child[:, 0] = torch.where(ok, NO_CHILD, ILLEGAL).to(torch.int32)
+    tree.prior[:, 0] = torch.where(ok, qprior(root_prior),
+                                   torch.zeros_like(root_prior))
+
+
+def root_counts_reference(tree: Tree):
+    """Root visit counts ``(B, A)`` int32, the policy ``counts / max(Σ, 1)``
+    and root Q ``val[0] / max(floor(visit[0]), 1)``."""
+    B = tree.B
+    ar = torch.arange(B, device=tree.visit.device)
+    ch0 = tree.child[:, 0].long()
+    zero = torch.zeros((), dtype=torch.float32, device=tree.visit.device)
+    counts = torch.where(ch0 >= 0,
+                         torch.floor(tree.visit[ar[:, None], ch0.clamp(min=0)]),
+                         zero).to(torch.int32)
+    total = torch.clamp(counts.sum(-1), min=1).to(torch.float32)
+    policy = counts.to(torch.float32) / total[:, None]
+    root_q = tree.val[:, 0] / torch.clamp(torch.floor(tree.visit[:, 0]),
+                                          min=1.0)
+    return counts, policy, root_q
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -528,8 +569,15 @@ K_TAIL = CudaKernel("search.cu", "az_move_tail", [
     _P, _P, _P, _P, _P, _P, _P, _P,       # visit val child unif board player mc lines
     _P, _P, _P, _P, _P, _P, _P,           # rec policy player t action done winner root_q
     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])  # B N A R C L K max_moves temp stream
+K_MOVE_ROOT_INIT = CudaKernel("search.cu", "az_move_root_init", [
+    _P, _P, _P, _P, _P, _P, _P,           # visit val child prior root_prior value live
+    _I, _I, _I, _P])                      # B N A stream
+K_ROOT_COUNTS = CudaKernel("search.cu", "az_root_counts", [
+    _P, _P, _P, _P, _P, _P,               # visit val child counts policy root_q
+    _I, _I, _I, _P])                      # B N A stream
 
-KERNELS = [K_DENSE, K_ROOT_OBS, K_ROOT_INIT, K_DESCEND, K_APPLY, K_TAIL]
+KERNELS = [K_DENSE, K_ROOT_OBS, K_ROOT_INIT, K_DESCEND, K_APPLY, K_TAIL,
+           K_MOVE_ROOT_INIT, K_ROOT_COUNTS]
 
 
 def _board_check(env, board, player, mc, dev):
@@ -641,14 +689,52 @@ def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec):
            int(cfg.temperature_moves), _stream(board))
 
 
+def move_root_init(tree: Tree, root_prior, value, live):
+    """``az_move_root_init`` for CUDA tensors,
+    :func:`move_root_init_reference` for CPU tensors."""
+    if _plain(root_prior):
+        return move_root_init_reference(tree, root_prior, value, live)
+    dev = root_prior.device
+    B, N, A = tree.B, tree.N, tree.A
+    tree.check(dev)
+    _check(root_prior, torch.float32, (B, A), dev, "root_prior")
+    _check(value, torch.float32, (B,), dev, "value")
+    _check(live, torch.bool, (B,), dev, "live")
+    K_MOVE_ROOT_INIT(tree.visit.data_ptr(), tree.val.data_ptr(),
+                     tree.child.data_ptr(), tree.prior.data_ptr(),
+                     root_prior.data_ptr(), value.data_ptr(), live.data_ptr(),
+                     B, N, A, _stream(root_prior))
+
+
+def root_counts(tree: Tree):
+    """``az_root_counts`` for CUDA tensors, :func:`root_counts_reference`
+    for CPU tensors."""
+    if _plain(tree.visit):
+        return root_counts_reference(tree)
+    dev = tree.visit.device
+    B, N, A = tree.B, tree.N, tree.A
+    tree.check(dev)
+    counts = torch.empty((B, A), dtype=torch.int32, device=dev)
+    policy = torch.empty((B, A), dtype=torch.float32, device=dev)
+    root_q = torch.empty((B,), dtype=torch.float32, device=dev)
+    K_ROOT_COUNTS(tree.visit.data_ptr(), tree.val.data_ptr(),
+                  tree.child.data_ptr(), counts.data_ptr(), policy.data_ptr(),
+                  root_q.data_ptr(), B, N, A, _stream(tree.visit))
+    return counts, policy, root_q
+
+
 PLAIN = SimpleNamespace(root_obs=root_obs_reference,
                         root_init=root_init_reference,
                         descend_leaf=descend_leaf_reference,
                         apply=apply_reference,
-                        move_tail=move_tail_reference)
+                        move_tail=move_tail_reference,
+                        move_root_init=move_root_init_reference,
+                        root_counts=root_counts_reference)
 DISPATCH = SimpleNamespace(root_obs=root_obs,
                            root_init=root_init, descend_leaf=descend_leaf,
-                           apply=apply, move_tail=move_tail)
+                           apply=apply, move_tail=move_tail,
+                           move_root_init=move_root_init,
+                           root_counts=root_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -776,3 +862,111 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
         evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
     return _chunk(DISPATCH, env, cfg, boards, players, move_counts, M, noise,
                   unif, evaluator)
+
+
+# ---------------------------------------------------------------------------
+# the move search (the arena's and the gate's search)
+# ---------------------------------------------------------------------------
+
+def move_root(env, cfg: MCTSConfig, eval_fn, board, player, mc, dones,
+              use_dirichlet, noise):
+    """The move search's root, on the host: one ``eval_fn`` forward, the
+    Dirichlet mix ``(1-eps)·p + eps·noise`` where ``use_dirichlet`` holds,
+    then ``NEG`` where an action is illegal or the game finished.  Returns
+    ``(root_prior (B, A), value (B,), live (B,))``."""
+    probs0, value0 = eval_fn(env.observation_from_board(board, player))
+    probs0, value0 = probs0.to(torch.float32), value0.to(torch.float32)
+    if noise is not None:
+        noisy = (1.0 - cfg.dirichlet_eps) * probs0 + cfg.dirichlet_eps * noise
+        probs0 = torch.where(use_dirichlet[:, None], noisy, probs0)
+    live = ~dones.to(device=board.device, dtype=torch.bool)
+    root_prior = torch.where(
+        live[:, None], prep_priors(probs0, env.valid_mask_board(board, mc)),
+        torch.full_like(probs0, NEG))
+    return root_prior.contiguous(), value0.contiguous(), live.contiguous()
+
+
+def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
+               move_counts, dones, use_dirichlet, noise, evaluator) -> Tree:
+    """The move search's tree after its root and simulations 1..S-1."""
+    B = boards.shape[0]
+    board = boards.to(torch.int8).contiguous()
+    player = players.to(torch.int32).contiguous()
+    mc = move_counts.to(torch.int32).contiguous()
+    root_prior, value0, live = move_root(env, cfg, eval_fn, board, player, mc,
+                                         dones, use_dirichlet, noise)
+    tree = Tree(env, B, cfg.num_simulations, boards.device)
+    ops.move_root_init(tree, root_prior, value0, live)
+    for slot in range(1, cfg.num_simulations):
+        ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
+        probs, value = evaluator(tree.obs)
+        ops.apply(tree, slot, probs, value)
+    return tree
+
+
+def _move(ops, *args):
+    counts, policy, root_q = ops.root_counts(_move_tree(ops, *args))
+    return SearchResult(visit_counts=counts, policy=policy, root_q=root_q)
+
+
+def _move_inputs(env, cfg, boards, players, move_counts, dones, generator,
+                 use_dirichlet, noise, dev):
+    B = boards.shape[0]
+    if use_dirichlet is None:
+        use_dirichlet = torch.full((B,), bool(cfg.use_dirichlet), device=dev)
+        drawn = bool(cfg.use_dirichlet)
+    else:
+        use_dirichlet = use_dirichlet.to(device=dev, dtype=torch.bool)
+        drawn = True
+    if noise is None and drawn:
+        noise = dirichlet_noise(1, env.action_dim, B, cfg.dirichlet_alpha,
+                                generator, dev)[0].T
+    if noise is not None:
+        noise = noise.to(dev, torch.float32).contiguous()
+    return (boards.to(dev), players.to(dev), move_counts.to(dev),
+            dones.to(dev), use_dirichlet, noise)
+
+
+def move_search_reference(env, model, params, eval_fn, boards, players,
+                          move_counts, dones, cfg: MCTSConfig, *,
+                          generator=None, use_dirichlet=None, noise=None,
+                          evaluator=None):
+    """Plain PyTorch version of :func:`run_mcts_fused`, on the inputs'
+    device."""
+    dev = boards.device
+    args = _move_inputs(env, cfg, boards, players, move_counts, dones,
+                        generator, use_dirichlet, noise, dev)
+    if evaluator is None:
+        packed = pack_dense_params(model, params, dev)
+        evaluator = lambda obs: dense_forward_reference(obs, packed)  # noqa: E731
+    return _move(PLAIN, env, cfg, eval_fn, *args, evaluator)
+
+
+def run_mcts_fused(env, model, params, eval_fn, boards, players, move_counts,
+                   dones, cfg: MCTSConfig, *, generator=None,
+                   use_dirichlet=None, noise=None, evaluator=None,
+                   device="cuda"):
+    """One move's search for B games; the JAX package's ``run_mcts_fused``
+    (its Pallas ``_move_kernel``), with the same returns as ``run_mcts``.
+
+    ``eval_fn(obs (B, F, R, C)) → (probs, value)`` evaluates the root only,
+    outside the search (the network module in plain PyTorch).  The root
+    prior is mixed with Dirichlet ``noise (B, A)`` (drawn from ``generator``
+    unless given) where ``use_dirichlet (B,)`` holds (default
+    ``cfg.use_dirichlet``), then masked to ``NEG`` where an action is
+    illegal or the game is finished (``dones (B,)``).  Simulations 1..S-1
+    run the chunk search's descent, forward and apply kernels
+    (``evaluator(obs (B, F·RC))`` replaces the dense forward; tests pass
+    exact stubs); a finished game's root is the leaf of every simulation
+    and backs up its terminal score, so its counts stay 0.  Returns a
+    ``SearchResult`` with ``visit_counts (B, A)`` int32, ``policy`` and
+    ``root_q (B,)``.  On CUDA every stage of the search runs as a CUDA
+    kernel; on the CPU the wrappers run the plain versions.
+    """
+    dev = resolve_device(device)
+    args = _move_inputs(env, cfg, boards, players, move_counts, dones,
+                        generator, use_dirichlet, noise, dev)
+    if evaluator is None:
+        packed = pack_dense_params(model, params, dev)
+        evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
+    return _move(DISPATCH, env, cfg, eval_fn, *args, evaluator)

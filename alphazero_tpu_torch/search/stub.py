@@ -4,7 +4,8 @@ Twin of the JAX package tests' ``_exact_stub_forwards``: per-action scores
 are 1 + small integer stone counts (exact in float32 in any summation
 order), priors are grid-aligned to 2⁻¹⁴ and the value is a function of the
 stone count, so every engine sees the same bits and whole search
-trajectories can be compared for equality.
+trajectories can be compared for equality.  :func:`drawn_board` gives the
+finished-game cases of those checks a drawn connect4 position.
 """
 
 from __future__ import annotations
@@ -28,3 +29,14 @@ def exact_stub_evaluator(env):
         return probs, value
 
     return evaluate
+
+
+def drawn_board(env) -> torch.Tensor:
+    """A full connect4 board ``(2, R, C)`` int8 with no line for either
+    player: the bottom row's columns belong to players 0 0 1 1 0 0 1, and
+    every row up swaps them."""
+    if (env.rows, env.cols) != (6, 7):
+        raise ValueError("drawn_board is a 6x7 connect4 board")
+    base = torch.tensor([0, 0, 1, 1, 0, 0, 1])
+    owner = base[None, :] ^ (torch.arange(env.rows)[:, None] % 2)
+    return torch.stack([owner == 0, owner == 1]).to(torch.int8)

@@ -1,7 +1,13 @@
-"""The trainer: self-play collection so far.
+"""The outer training loop: collect → train → gate → promote.
 
-Counterpart of the JAX package's ``training/loop.py``.  The learner's SGD
-and the gating arena are ported in later slices.
+Counterpart of the JAX package's ``training/loop.py``.  The best parameters
+generate the self-play data; the contender (``params_new``, a copy of the
+best) trains on it; the gate plays contender against best and promotes the
+contender when its win rate exceeds ``gate_threshold``, else reverts it.
+Collection doubles after ``reject_double_after`` rejections in a row.
+Checkpoints, the metrics logger and the vanilla sanity match are module 9
+of ROADMAP.md (the match needs module 3's rollout search) and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -11,14 +17,22 @@ import time
 import torch
 
 from alphazero_tpu_torch.config import Config
+from alphazero_tpu_torch.data.augment import Symmetries
 from alphazero_tpu_torch.data.replay import create, num_rows_augmented
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs import make_env
-from alphazero_tpu_torch.models import build_model, init_params
+from alphazero_tpu_torch.eval.arena import Agent, compare
+from alphazero_tpu_torch.models import build_model, init_params, make_eval_fn
+from alphazero_tpu_torch.training import learner
 from alphazero_tpu_torch.training.selfplay import (init_selfplay,
                                                    make_selfplay_runner)
 
 SELFPLAY_CHUNK_STEPS = 32
+TRAIN_CHUNK_STEPS = 32
+
+
+def _copy(params: dict) -> dict:
+    return {k: v.detach().clone() for k, v in params.items()}
 
 
 class Trainer:
@@ -31,18 +45,31 @@ class Trainer:
         self.env = make_env(cfg.env)
         self.model = build_model(cfg.model, self.env).to(self.device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
-        # the best params generate the data (the learner slice adds the
-        # contender that trains)
+        # best ("older") generates data; the contender ("newer") trains
         self.params_best = {k: v.to(self.device)
                             for k, v in init_params(self.model, gen).items()}
+        self.params_new = _copy(self.params_best)
         self.buffer = create(self.env, cfg.replay.capacity, self.device)
         self.sp = init_selfplay(self.env, cfg.train.selfplay_batch,
                                 cfg.train.seed + 1, self.device)
+        # draws of the learner's samples and of the gate's matches
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed + 2)
+        self.version = 0
+        self.outer_iter = 0
+        self.reject_count = 0
+        self.last_gate_score = None     # [best, contender, draws]
+        self._syms = Symmetries(self.env, self.device)
         self._chunk_steps = (cfg.train.selfplay_chunk_steps
                              or SELFPLAY_CHUNK_STEPS)
         self._runner = make_selfplay_runner(self.env, self.model, cfg.mcts,
                                             cfg.replay, self._chunk_steps)
 
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- phases
     def collect(self, games_target: int) -> dict:
         """Self-play with the best params until ``games_target`` new games
         finish.
@@ -60,8 +87,7 @@ class Trainer:
             tc = time.perf_counter()
             self.sp, self.buffer = self._runner(self.params_best, self.sp,
                                                 self.buffer)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             chunk_seconds.append(time.perf_counter() - tc)
             if int(done_prev) - start_games >= games_target:
                 break
@@ -80,6 +106,78 @@ class Trainer:
 
     def _buffer_rows(self) -> int:
         """Buffer occupancy in augmented rows (symmetry orbits counted)."""
-        n_syms = len(self.env.symmetries()[0]) if self.cfg.replay.augment else 1
+        n_syms = self._syms.num if self.cfg.replay.augment else 1
         return int(num_rows_augmented(self.buffer, n_syms,
                                       self.cfg.replay.augment_skip_moves))
+
+    def train_epoch(self) -> dict:
+        """SGD on the contender: ``buffer rows // batch`` steps (at least 1)
+        unless ``train_steps_per_iter`` is set, from a fresh Adam state.
+        The losses reported are the last chunk's mean, as the JAX trainer
+        reports them."""
+        t = self.cfg.train
+        steps = max(self._buffer_rows() // t.batch_size, 1)
+        if t.train_steps_per_iter is not None:
+            steps = t.train_steps_per_iter
+        t0 = time.perf_counter()
+        self.params_new, metrics = learner.train_epoch(
+            self.model, self.params_new, self.buffer, t, steps,
+            generator=self.generator,
+            syms=self._syms if self.cfg.replay.augment else None,
+            augment_skip=self.cfg.replay.augment_skip_moves,
+            chunk_steps=TRAIN_CHUNK_STEPS)
+        m = {k: float(v) for k, v in metrics._asdict().items()}
+        return {"steps": steps, **m, "seconds": time.perf_counter() - t0}
+
+    def gate(self) -> float:
+        """Contender-vs-best arena of ``gate_games`` games with visit
+        sampling → the contender's win rate; 1.0 when the gate is disabled."""
+        if not self.cfg.train.gate_enabled:
+            return 1.0
+        best = Agent(make_eval_fn(self.model, self.params_best), self.cfg.mcts)
+        cont = Agent(make_eval_fn(self.model, self.params_new), self.cfg.mcts)
+        rate, score = compare(self.env, best, cont, self.cfg.train.gate_games,
+                              generator=self.generator, sampling=True,
+                              device=self.device)
+        self.last_gate_score = score.tolist()
+        return rate
+
+    # ------------------------------------------------------------ iteration
+    def iterate(self, vanilla_eval: bool = True) -> dict:
+        """One outer iteration.  A vanilla sanity match that falls due
+        (``vanilla_eval`` and ``version % vanilla_eval_every == 0`` after a
+        promotion) raises ``NotImplementedError``: it needs the rollout
+        search of module 3."""
+        t = self.cfg.train
+        self.outer_iter += 1
+        games = t.games_per_iter
+        if self.reject_count >= t.reject_double_after:
+            games *= 2
+        cm = self.collect(games)
+        tm = self.train_epoch()
+        t0 = time.perf_counter()
+        rate = self.gate()
+        self._sync()
+        gate_seconds = time.perf_counter() - t0
+        accepted = rate > t.gate_threshold
+        if accepted:
+            self.params_best = _copy(self.params_new)
+            self.version += 1
+            self.reject_count = 0
+            if vanilla_eval and self.version % t.vanilla_eval_every == 0:
+                raise NotImplementedError(
+                    "the vanilla sanity match needs rollout search "
+                    "(ROADMAP.md modules 3 and 9), not ported yet; call "
+                    "iterate(vanilla_eval=False)")
+        else:
+            self.params_new = _copy(self.params_best)
+            self.reject_count += 1
+        return {"iter": self.outer_iter, "version": self.version,
+                "accepted": bool(accepted), "gate_rate": rate, **cm, **tm,
+                "collect_seconds": cm["seconds"],
+                "train_seconds": tm["seconds"], "gate_seconds": gate_seconds}
+
+    def run(self, iterations=None, vanilla_eval: bool = True):
+        n = iterations or self.cfg.train.outer_iterations
+        for _ in range(n):
+            self.iterate(vanilla_eval=vanilla_eval)

@@ -17,12 +17,27 @@ Phases (any failure exits non-zero before the final line):
      and the device time of every kernel over one profiled chunk;
   5. each search kernel against its plain version on a snapshot of a
      main-path move, with times;
-then one JSON line per kernel summary, the card line, and the device JSON.
+  6. the move search (the gate's search, kernel 2) on the card against its
+     plain version, bit for bit, under the exact stub evaluator at B=128,
+     S=200 with Dirichlet noise fed to both and live, won and drawn games
+     mixed; then az_move_root_init and az_root_counts each against its
+     plain version on a main-path snapshot (real weights), with times, and
+     the forward kernel against its plain version at the gate's B=128 on
+     every simulation of that search;
+  7. the main path's whole outer iteration,
+     ``Trainer(preset("connect4")).iterate(vanilla_eval=False)``: launch
+     counts set to 0 before and read after, and measured per phase
+     (collect, train, gate); seconds of collect, train and gate, checks on
+     the gate's searches, the score, the loss and the promote/revert
+     bookkeeping; then one gate move (both agents) profiled;
+then the main-path summary, one JSON line of kernels, the card line, and the
+device JSON.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -35,7 +50,8 @@ TOL_FWD_FRAC = 0.99     # ... and this share of outputs within 1e-3
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
-REPLACES = "alphazero_tpu/search/pallas_fused.py:805"
+REPLACES = "alphazero_tpu/search/pallas_fused.py:805"        # _chunk_kernel
+REPLACES_MOVE = "alphazero_tpu/search/pallas_fused.py:661"   # _move_kernel
 
 
 def fail(msg):
@@ -80,8 +96,11 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-# kernel function names in csrc/ → the C entry that launches each
-KERNEL_FUNCS = {"descend_leaf_kernel": "az_descend_leaf",
+# kernel function names in csrc/ → the C entry that launches each (a name
+# that holds another comes first)
+KERNEL_FUNCS = {"move_root_init_kernel": "az_move_root_init",
+                "root_counts_kernel": "az_root_counts",
+                "descend_leaf_kernel": "az_descend_leaf",
                 "move_tail_kernel": "az_move_tail",
                 "root_init_kernel": "az_root_init",
                 "root_obs_kernel": "az_root_obs",
@@ -96,10 +115,26 @@ def device_profile(fn):
     device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # a failure of the profiler is reported and skipped, one of fn raises
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except RuntimeError as e:
+        log(f"[profile] torch.profiler failed to start ({e})")
+        return None
+    stop_error = None
+    try:
         fn()
         torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+        except RuntimeError as e:
+            stop_error = e
+    if stop_error is not None:
+        log(f"[profile] torch.profiler failed ({stop_error})")
+        return None
     kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kev:
         return None
@@ -132,6 +167,38 @@ def random_positions(env, B, gen, dev):
     return state
 
 
+def with_drawn_game(state, env):
+    """``state`` with its last game replaced by a drawn full board (no line
+    for either player)."""
+    from alphazero_tpu_torch.search.stub import drawn_board
+    state.board[-1] = drawn_board(env).to(state.board.device)
+    state.current_player[-1] = 0
+    state.move_count[-1] = env.max_moves
+    state.done[-1] = True
+    state.winner[-1] = -1
+    return state
+
+
+def print_profile(tag, prof, wall_ms):
+    """Print a device profile; returns {entry: device ms per launch}."""
+    dev_ms = {}
+    if prof is None:
+        log(f"[profile] {tag}: torch.profiler recorded no device events: "
+            "kernel device times not measured")
+        return dev_ms
+    per, busy, span = prof
+    for name, (n, us) in sorted(per.items(), key=lambda x: -x[1][1]):
+        log(f"[profile] {tag}: {name}: {n} launches, {us / 1e3:.2f} ms "
+            f"device, {us / max(n, 1):.2f} us each, {us / busy:.1%} of busy "
+            "time")
+        if name != "other":
+            dev_ms[name] = us / n / 1e3
+    log(f"[profile] {tag}: device busy {busy / 1e3:.1f} ms, kernel span "
+        f"{span / 1e3:.1f} ms; idle share vs the unprofiled wall time "
+        f"({wall_ms:.1f} ms) {1 - busy / 1e3 / wall_ms:.3f}")
+    return dev_ms
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -140,9 +207,12 @@ def main():
 
     from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.envs import make_env
-    from alphazero_tpu_torch.models import build_model, init_params
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
     from alphazero_tpu_torch.ops import build
     from alphazero_tpu_torch.search import fused
+    from alphazero_tpu_torch.search.mcts import run_mcts
     from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.training import Trainer
 
@@ -258,7 +328,8 @@ def main():
     M = cfg.train.selfplay_chunk_steps or 32
     expect = {"az_dense_forward": chunks * M * S, "az_root_obs": chunks * M,
               "az_root_init": chunks * M, "az_descend_leaf": chunks * M * (S - 1),
-              "az_apply": chunks * M * (S - 1), "az_move_tail": chunks * M}
+              "az_apply": chunks * M * (S - 1), "az_move_tail": chunks * M,
+              "az_move_root_init": 0, "az_root_counts": 0}
     log(f"[main path] Trainer(preset('connect4')).collect: {chunks} chunks of "
         f"{M} moves, {m['games']} games, launches {launches}")
     if launches != expect:
@@ -292,7 +363,8 @@ def main():
             (stones == torch.arange(env.max_moves, device=dev)[None])[rows].all()),
         "stones obey gravity": not bool(floating),
         "finite root policies": bool(torch.isfinite(pol).all()),
-        "every kernel launched": all(v > 0 for v in launches.values()),
+        "every chunk kernel launched": all(
+            launches[k] > 0 for k, v in expect.items() if v),
     }
     for name, ok in checks.items():
         log(f"  [{'ok' if ok else 'FAIL'}] {name}")
@@ -303,26 +375,9 @@ def main():
     rate = steps_per_chunk / med
     log(f"[main path] chunk seconds {chunk_seconds}; median {med:.4f} s "
         f"-> {rate:.1f} env-steps/s ({rate * S:.0f} sims/s) at B={B}, S={S}")
-    try:
-        prof = device_profile(lambda: tr.collect(games_target=0))
-    except RuntimeError as e:          # the profiler could not trace
-        log(f"[profile] torch.profiler failed ({e})")
-        prof = None
-    dev_ms = {}
-    if prof is None:
-        log("[profile] torch.profiler recorded no device events: kernel "
-            "device times not measured")
-    else:
-        per, busy, span = prof
-        for name, (n, us) in sorted(per.items(), key=lambda x: -x[1][1]):
-            log(f"[profile] one chunk: {name}: {n} launches, "
-                f"{us / 1e3:.2f} ms device, {us / max(n, 1):.2f} us each, "
-                f"{us / busy:.1%} of busy time")
-            if name != "other":
-                dev_ms[name] = us / n / 1e3
-        log(f"[profile] device busy {busy / 1e3:.1f} ms per chunk, kernel "
-            f"span {span / 1e3:.1f} ms; idle share vs the unprofiled median "
-            f"chunk {1 - busy / 1e6 / med:.3f}")
+    dev_ms = print_profile("one chunk",
+                           device_profile(lambda: tr.collect(games_target=0)),
+                           med * 1e3)
 
     # ---- 5. search kernels vs plain versions on a main-path move
     sp = tr.sp
@@ -479,21 +534,252 @@ def main():
                                    bound_by=b_by)
     torch.cuda.synchronize()
 
+    # ---- 6. the move search (kernel 2) vs its plain version, bitwise
+    Bg = cfg.train.gate_games // 2           # each agent's half of the gate
+    st6 = with_drawn_game(random_positions(env, Bg, gen, dev), env)
+    margs = (st6.board, st6.current_player, st6.move_count, st6.done)
+    won6 = st6.done & (st6.winner >= 0)
+    drawn6 = st6.done & (st6.winner < 0)
+    noise6 = fused.dirichlet_noise(1, A, Bg, mcfg.dirichlet_alpha, gen,
+                                   dev)[0].T.contiguous()
+    root_stub = lambda o: stub(o.reshape(o.shape[0], -1))  # noqa: E731
+    t0 = time.perf_counter()
+    got6 = fused.run_mcts_fused(env, None, None, root_stub, *margs, mcfg,
+                                noise=noise6, evaluator=stub, device=dev)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want6 = fused.move_search_reference(env, None, None, root_stub, *margs,
+                                        mcfg, noise=noise6, evaluator=stub)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    bad = [k for k in ("visit_counts", "policy", "root_q")
+           if not torch.equal(getattr(got6, k), getattr(want6, k))]
+    sums6 = got6.visit_counts.sum(-1)
+    log(f"[move search] B={Bg} S={S} Dirichlet, exact stub, "
+        f"{int((~st6.done).sum())} live / {int(won6.sum())} won / "
+        f"{int(drawn6.sum())} drawn roots: mismatched {bad or 'none'}; "
+        f"kernel search {t_kern:.2f} s, plain search {t_plain:.2f} s")
+    if bad:
+        fail(f"move search kernels differ from the plain search in {bad}")
+    checks = {
+        "live roots count S-1 visits": bool(
+            (sums6[~st6.done] == S - 1).all()),
+        "finished roots count none": bool((sums6[st6.done] == 0).all()),
+        "won roots back up their win: root Q (S-1)/S": bool(won6.any()) and bool(
+            (got6.root_q[won6] == torch.tensor((S - 1) / S,
+                                               device=dev)).all()),
+        "the drawn root: root Q 0": bool((got6.root_q[drawn6] == 0).all()),
+    }
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("move search checks failed")
+
+    # az_move_root_init and az_root_counts on a main-path snapshot: the
+    # gate's half batch, the trainer's weights, the real forward
+    root_fn = make_eval_fn(tr.model, tr.params_best)
+    use6 = torch.ones(Bg, dtype=torch.bool, device=dev)
+    rp, v0, live6 = fused.move_root(env, mcfg, root_fn, *margs, use6, noise6)
+    tree6 = fused.Tree(env, Bg, S, dev)
+    ms = compare("az_move_root_init",
+                 lambda s: fused.move_root_init(s["tree"], s["rp"], s["v"],
+                                                s["live"]),
+                 lambda s: fused.move_root_init_reference(
+                     s["tree"], s["rp"], s["v"], s["live"]),
+                 tree_clone({"tree": tree6, "rp": rp, "v": v0,
+                             "live": live6}),
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in tree_fields])
+    b_ms, b_by = bound(nbytes(rp, v0, live6) + 2 * Bg * N * 4 + Bg * A * 8,
+                       f32_ops=4.0 * Bg * A)
+    summary["az_move_root_init"] = dict(ms=ms[0], plain_ms=ms[1],
+                                        bound_ms=b_ms, bound_by=b_by)
+    # the search with the real forward kernel, held against its plain
+    # version at the gate's shape on every simulation
+    fwd_err = []
+
+    def checked_forward(o):
+        pk, vk = fused.dense_forward(o, packed)
+        pp, vp = fused.dense_forward_reference(o, packed)
+        if not (torch.isfinite(pk).all() and torch.isfinite(vk).all()):
+            fail(f"forward kernel at B={Bg}: non-finite output")
+        fwd_err.append(torch.cat([(pk - pp).abs().reshape(-1),
+                                  (vk - vp).abs()]))
+        return pk, vk
+
+    tree6 = fused._move_tree(fused.DISPATCH, env, mcfg, root_fn, *margs,
+                             use6, noise6, checked_forward)
+    err = torch.cat(fwd_err)
+    err_b128 = float(err.max())
+    frac = float((err <= 1e-3).float().mean())
+    ok = err_b128 <= TOL_FWD_MAX and frac >= TOL_FWD_FRAC
+    log(f"[forward] B={Bg}, the {len(fwd_err)} simulations of a move search: "
+        f"max abs err {err_b128:.3e} (tol {TOL_FWD_MAX}), share within 1e-3 "
+        f"{frac:.4f} (tol {TOL_FWD_FRAC}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"forward kernel disagrees with its plain version at B={Bg}")
+    fwd = summary["az_dense_forward"]
+    fwd["max_abs_err_by_batch"] = {str(B): fwd["max_abs_err"],
+                                   str(Bg): err_b128}
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], err_b128)
+    ms = compare("az_root_counts", lambda s: fused.root_counts(s["tree"]),
+                 lambda s: fused.root_counts_reference(s["tree"]),
+                 tree_clone({"tree": tree6}),
+                 [out(lambda s, r, i=i: r[i], name) for i, name in
+                  enumerate(("counts", "policy", "root_q"))])
+    n_kids = int((tree6.child[:, 0] >= 0).sum())
+    b_ms, b_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
+                       + Bg * 4, f32_ops=float(Bg * A + Bg))
+    summary["az_root_counts"] = dict(ms=ms[0], plain_ms=ms[1],
+                                     bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 7. the main path's outer iteration
+    tr7 = Trainer(cfg, device="cuda")
+    init7 = {k: v.clone() for k, v in tr7.params_best.items()}
+    trace, split = [], {}
+
+    def launch_counts():
+        return {k.name: k.launches for k in fused.KERNELS}
+
+    def counted(phase, fn):
+        """``fn`` that also stores the launches it made under ``phase``."""
+        def run(*a, **kw):
+            before = launch_counts()
+            r = fn(*a, **kw)
+            split[phase] = {n: c - before[n]
+                            for n, c in launch_counts().items()}
+            return r
+        return run
+
+    def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
+                        **kw):
+        res = run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_, **kw)
+        trace.append((dones, res.visit_counts))
+        return res
+
+    for phase in ("collect", "train_epoch", "gate"):
+        setattr(tr7, phase, counted(phase, getattr(tr7, phase)))
+    arena.run_mcts = traced_run_mcts
+    for k in fused.KERNELS:
+        k.launches = 0
+    try:
+        it = tr7.iterate(vanilla_eval=False)
+    finally:
+        arena.run_mcts = run_mcts
+    launches7 = launch_counts()
+    chunks7 = len(it["chunk_seconds"])
+    searches = 2 * env.max_moves             # both agents, every gate move
+    gate_launches = {
+        "az_dense_forward": searches * (S - 1),
+        "az_descend_leaf": searches * (S - 1),
+        "az_apply": searches * (S - 1),
+        "az_move_root_init": searches, "az_root_counts": searches}
+    expect7 = {}
+    for name in launches7:
+        expect7[name] = (expect[name] // chunks * chunks7
+                         + gate_launches.get(name, 0))
+    log(f"[iterate] Trainer(preset('connect4')).iterate(vanilla_eval=False): "
+        f"launches {launches7}; measured per phase {split}")
+    if launches7 != expect7:
+        fail(f"launch counts {launches7} != expected {expect7}")
+    if set(split) != {"collect", "train_epoch", "gate"} or any(
+            sum(split[p][n] for p in split) != launches7[n]
+            for n in launches7):
+        fail("the per-phase launch counts do not add up to the total")
+    if split["gate"] != {n: gate_launches.get(n, 0) for n in launches7} \
+            or any(split["train_epoch"].values()):
+        fail(f"gate launches {split['gate']} != expected {gate_launches}, "
+             f"or the learner launched a search kernel")
+    steps_rate = it["steps"] / it["train_seconds"]
+    log(f"[iterate] collect {it['collect_seconds']:.3f} s ({chunks7} chunks, "
+        f"{it['games']} games, {it['env_steps']} env-steps); train "
+        f"{it['train_seconds']:.3f} s ({it['steps']} steps of batch "
+        f"{cfg.train.batch_size}, {steps_rate:.1f} steps/s, loss "
+        f"{it['loss']:.4f}); gate {it['gate_seconds']:.3f} s "
+        f"({env.max_moves} moves, {cfg.train.gate_games} games, score "
+        f"{tr7.last_gate_score}, rate {it['gate_rate']}, accepted "
+        f"{it['accepted']}); gate launches {split['gate']}")
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    if it["accepted"]:
+        kept = (tr7.version == 1 and tr7.reject_count == 0
+                and same(tr7.params_best, tr7.params_new)
+                and not same(tr7.params_best, init7))
+    else:
+        kept = (tr7.version == 0 and tr7.reject_count == 1
+                and same(tr7.params_new, init7)
+                and same(tr7.params_best, init7))
+    checks = {
+        "gate score sums to the game count": sum(
+            tr7.last_gate_score[:2]) == cfg.train.gate_games,
+        "every gate search recorded": len(trace) == searches,
+        "gate: live roots count S-1 visits": all(
+            bool((c.sum(-1)[~d] == S - 1).all()) for d, c in trace),
+        "gate: finished roots count none": all(
+            bool((c.sum(-1)[d] == 0).all()) for d, c in trace),
+        "train steps = buffer rows // batch": it["steps"] == max(
+            it["buffer_size"] // cfg.train.batch_size, 1),
+        "finite losses": all(math.isfinite(it[k]) for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+        "promote/revert bookkeeping": kept,
+        "every kernel launched": all(v > 0 for v in launches7.values()),
+    }
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("iteration checks failed")
+
+    # one gate move, both agents (B=128 each), profiled
+    st7 = random_positions(env, cfg.train.gate_games, gen, dev)
+    agents = (make_eval_fn(tr7.model, tr7.params_best),
+              make_eval_fn(tr7.model, tr7.params_new))
+    halves = (slice(0, Bg), slice(Bg, None))
+
+    def gate_move():
+        for fn, sl in zip(agents, halves):
+            run_mcts(env, fn, st7.board[sl], st7.current_player[sl],
+                     st7.move_count[sl], st7.done[sl], mcfg, generator=gen,
+                     device=dev)
+
+    gate_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate_move()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    gate_ms = print_profile(f"one gate move (2 x B={Bg})",
+                            device_profile(gate_move), wall_ms)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
+        new = k.name in ("az_move_root_init", "az_root_counts")
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": s.get("source", "alphazero_tpu_torch/csrc/search.cu"),
-            "replaces": REPLACES, "launches": launches[k.name],
+            "replaces": REPLACES_MOVE if new else REPLACES,
+            "launches": launches7[k.name],
+            "launches_collect": split["collect"][k.name],
+            "launches_gate": split["gate"][k.name],
             "max_abs_err": s.get("max_abs_err", 0.0),
-            "ms": dev_ms.get(k.name, s["ms"]), "call_ms": s["ms"],
+            **({"max_abs_err_by_batch": s["max_abs_err_by_batch"]}
+               if "max_abs_err_by_batch" in s else {}),
+            "ms": (gate_ms if new else dev_ms).get(k.name, s["ms"]),
+            "gate_ms": gate_ms.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None})
     log(json.dumps({"main_path": {
         "preset": "connect4", "batch": B, "num_simulations": S,
         "chunk_moves": M, "chunk_seconds": chunk_seconds,
-        "env_steps_per_s": rate}}))
+        "env_steps_per_s": rate, "iterate": {
+            k: it[k] for k in ("collect_seconds", "train_seconds",
+                               "gate_seconds", "steps", "games", "loss",
+                               "gate_rate", "accepted")},
+        "train_steps_per_s": steps_rate, "gate_score": tr7.last_gate_score,
+        "gate_move_ms": wall_ms}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ from alphazero_tpu_torch.config import MCTSConfig, ModelConfig
 from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.models import build_model, init_params
 from alphazero_tpu_torch.search import fused
-from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+from alphazero_tpu_torch.search.stub import drawn_board, exact_stub_evaluator
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +92,129 @@ def test_kernel_wrappers_count_launches(dev):
     assert torch.equal(obs, want)
     with pytest.raises(ValueError):
         fused.root_obs(env, boards.to(torch.int32), players, rec)
+
+
+def _move_positions(env, B, seed, dev):
+    """B arena roots from random legal play, each stopped at its own
+    length (some finished by a win), with the last one a drawn full
+    board."""
+    g = torch.Generator().manual_seed(seed)
+    st = env.init(B)
+    target = torch.randint(0, 40, (B,), generator=g)
+    for t in range(40):
+        mask = env.valid_mask(st) & (t < target)[:, None]
+        act = torch.where(mask, torch.rand(mask.shape, generator=g), -1.0
+                          ).argmax(-1).to(torch.int32)
+        nxt = env.step(st, act)
+        live = mask.any(-1)
+        st = type(st)(*(torch.where(
+            live.reshape((B,) + (1,) * (getattr(st, f).dim() - 1)),
+            getattr(nxt, f), getattr(st, f)) for f in vars(st)))
+    st.board[-1] = drawn_board(env)
+    st.current_player[-1], st.move_count[-1] = 0, env.max_moves
+    st.done[-1], st.winner[-1] = True, -1
+    assert st.done[:-1].any() and (~st.done).any()
+    return (st.board.to(dev), st.current_player.to(dev),
+            st.move_count.to(dev), st.done.to(dev))
+
+
+def test_move_root_init_and_root_counts_kernels_vs_plain(dev):
+    env = make_env("connect4")
+    B, S, A = 96, 24, env.action_dim
+    boards, players, mcs, dones = _move_positions(env, B, 4, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    prior = torch.rand((B, A), generator=g, device=dev)
+    prior = torch.where(torch.rand((B, A), generator=g, device=dev) < 0.2,
+                        fused.NEG, prior)
+    value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+    live = ~dones
+    tk, tp = fused.Tree(env, B, S, dev), fused.Tree(env, B, S, dev)
+    tk.visit.fill_(7.0)                            # stale values to clear
+    before = fused.K_MOVE_ROOT_INIT.launches
+    fused.move_root_init(tk, prior, value, live)
+    assert fused.K_MOVE_ROOT_INIT.launches == before + 1
+    fused.move_root_init_reference(tp, prior, value, live)
+    for f in ("visit", "val"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+    for f in ("child", "prior"):
+        assert torch.equal(getattr(tk, f)[:, 0], getattr(tp, f)[:, 0]), f
+    cfg = MCTSConfig(num_simulations=S)
+    stub = exact_stub_evaluator(env)
+    for slot in range(1, S):
+        fused.descend_leaf(env, cfg, tk, boards, players, mcs, slot)
+        fused.apply(tk, slot, *stub(tk.obs))
+    got = fused.root_counts(tk)
+    want = fused.root_counts_reference(tk)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0].sum(-1)[live] == S - 1).all()
+    assert (got[0].sum(-1)[dones] == 0).all()
+
+
+@pytest.mark.parametrize("dirichlet,formula", [(False, "reference"),
+                                               (True, "alphazero")])
+def test_move_search_kernels_bitwise_vs_plain(dev, dirichlet, formula):
+    """The whole move search with finished (won and drawn) games present."""
+    env = make_env("connect4")
+    cfg = MCTSConfig(num_simulations=40, dirichlet_alpha=0.3,
+                     use_dirichlet=dirichlet, formula=formula, c_puct=1.7)
+    B = 128
+    args = _move_positions(env, B, 6, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    noise = fused.dirichlet_noise(1, env.action_dim, B, 0.3, g, dev)[0].T
+    stub = exact_stub_evaluator(env)
+    kw = dict(noise=noise, evaluator=stub)
+    root = lambda obs: stub(obs.reshape(obs.shape[0], -1))  # noqa: E731
+    got = fused.run_mcts_fused(env, None, None, root, *args, cfg, device=dev,
+                               **kw)
+    want = fused.move_search_reference(env, None, None, root, *args, cfg,
+                                       **kw)
+    for name in ("visit_counts", "policy", "root_q"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    sums = got.visit_counts.sum(-1)
+    dones = args[3]
+    assert (sums[~dones] == 39).all() and (sums[dones] == 0).all()
+
+
+def test_learner_step_on_card_close_to_cpu(dev):
+    """One Adam step, float32 compute, no TF32: loss within 1e-5 relative
+    and each gradient within 1e-5 of its largest entry (summation order);
+    parameters after the step within 2·lr everywhere (the most one Adam
+    step moves a parameter; a gradient near 0 may take either sign) and
+    within 1e-6 on 99% of entries."""
+    from alphazero_tpu_torch.config import TrainConfig
+    from alphazero_tpu_torch.data import Symmetries, create, sample
+    from alphazero_tpu_torch.training import learner
+    env = make_env("connect4")
+    model = build_model(ModelConfig(family="dense", width=64, blocks=2,
+                                    compute_dtype="float32"), env)
+    params = init_params(model, torch.Generator().manual_seed(0))
+    buf = create(env, 42 * 8, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    buf.obs.copy_((torch.rand(buf.obs.shape, generator=g) < 0.3).to(torch.int8))
+    buf.policy.copy_(torch.softmax(torch.randn(buf.policy.shape, generator=g),
+                                   -1))
+    buf.length.copy_(torch.randint(1, 43, buf.length.shape, generator=g))
+    buf.winner.copy_(torch.randint(-1, 2, buf.winner.shape, generator=g))
+    batch = sample(buf, 64, generator=g, syms=Symmetries(env, "cpu"),
+                   augment_skip=2)
+    cfg = TrainConfig(learning_rate=2.5e-4)
+    out = {}
+    for d in ("cpu", dev):
+        m = model.to(d)
+        ps = {k: v.to(d).clone().requires_grad_(True)
+              for k, v in params.items()}
+        opt = learner.make_optimizer(cfg, ps)
+        met = learner.train_step(m, ps, opt, *(x.to(d) for x in batch),
+                                 cfg.l2_coeff)
+        out[str(d)] = (float(met.loss),
+                       {k: v.grad.cpu() for k, v in ps.items()},
+                       {k: v.detach().cpu() for k, v in ps.items()})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-5 * float(
+            gc[k].abs().max()), k
+        d = (pg[k] - pc[k]).abs()
+        assert float(d.max()) <= 2 * cfg.learning_rate, k
+        assert float((d <= 1e-6).float().mean()) >= 0.99, k

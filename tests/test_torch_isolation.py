@@ -16,19 +16,26 @@ ROOT = PKG.parent
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
+    """Every module of the package, found by walking it, so that a module
+    added later is held to the rule too."""
     code = (
-        "import sys\n"
-        "import alphazero_tpu_torch, alphazero_tpu_torch.training, "
-        "alphazero_tpu_torch.search.fused, alphazero_tpu_torch.search.stub, "
-        "alphazero_tpu_torch.ops.build\n"
+        "import importlib, pkgutil, sys\n"
+        "import alphazero_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'flax' or m.startswith('flax.') or "
         "m == 'alphazero_tpu' or m.startswith('alphazero_tpu.'))\n"
-        "print(repr(bad))\n")
+        "print(len(names), repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]"
+    modules = [p for p in PKG.rglob("*.py")]
+    assert int(n) == len(modules) - 1      # every module but the package's own
 
 
 def test_sources_never_name_jax_or_the_jax_package():
@@ -43,16 +50,20 @@ def test_sources_never_name_jax_or_the_jax_package():
         assert not hits, (p, hits)
 
 
-@pytest.mark.parametrize("entry", ["trainer", "chunk", "buffer", "selfplay"])
+@pytest.mark.parametrize("entry", ["trainer", "chunk", "buffer", "selfplay",
+                                   "move_search", "compare", "symmetries"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
     from alphazero_tpu_torch import config as tcfg
-    from alphazero_tpu_torch.data import create
+    from alphazero_tpu_torch.data import Symmetries, create
     from alphazero_tpu_torch.envs import make_env
-    from alphazero_tpu_torch.search.fused import run_selfplay_chunk
+    from alphazero_tpu_torch.eval import Agent, compare
+    from alphazero_tpu_torch.search.fused import (run_mcts_fused,
+                                                  run_selfplay_chunk)
     from alphazero_tpu_torch.training import Trainer, init_selfplay
     env = make_env("connect4")
+    z = torch.zeros(2, dtype=torch.int32)
     calls = {
         "trainer": lambda: Trainer(tcfg.preset("connect4")),
         "chunk": lambda: run_selfplay_chunk(
@@ -61,6 +72,12 @@ def test_entry_points_raise_without_cuda(entry):
             tcfg.MCTSConfig(num_simulations=4), 1),
         "buffer": lambda: create(env, 420),
         "selfplay": lambda: init_selfplay(env, 2, 0),
+        "move_search": lambda: run_mcts_fused(
+            env, None, None, None, torch.zeros((2, 2, 6, 7), dtype=torch.int8),
+            z, z, torch.zeros(2, dtype=torch.bool),
+            tcfg.MCTSConfig(num_simulations=4)),
+        "compare": lambda: compare(env, Agent(), Agent(), 2),
+        "symmetries": lambda: Symmetries(env),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
