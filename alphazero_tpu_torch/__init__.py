@@ -6,19 +6,26 @@ wrote in Pallas for the TPU is a CUDA kernel written by hand for sm_90a
 (``csrc/``), built with ``nvcc`` at first use (``ops/build.py``) and held
 against a plain PyTorch version of the same function.
 
-Ported so far: the connect4 outer iteration with the dense tower,
-``training.loop.Trainer.iterate``: self-play collection (``collect`` →
-``training.selfplay`` → ``search.fused.run_selfplay_chunk``), the learner
-(``train_epoch`` → ``training.learner``), the gate (``gate`` →
-``eval.arena.compare`` → ``search.mcts.run_mcts`` →
-``search.fused.run_mcts_fused``) and promote or revert.
+Ported so far: the outer iteration, ``training.loop.Trainer.iterate``, for
+the dense tower (connect4) and the conv ResNet (tictactoe, connect4,
+gomoku):
+self-play collection (``collect`` → ``training.selfplay``: the dense
+tower's whole-chunk search ``search.fused.run_selfplay_chunk``, or one
+``selfplay_step`` per move), the learner (``train_epoch`` →
+``training.learner``), the gate (``gate`` → ``eval.arena.compare`` →
+``search.mcts.run_mcts``, which runs ``search.fused.run_mcts_fused`` for
+the dense tower, the per-simulation engine ``search.sim.run_mcts_sim`` for
+other networks and the portable engine ``search.mcts.run_mcts_xla`` with
+rollouts for vanilla search), promote or revert, and the vanilla sanity
+match.
 
 Layer map:
   config.py  — configuration dataclasses and presets
   envs/      — batched game rules on tensors
-  models/    — the dense policy/value tower
-  search/    — MCTS: whole-chunk self-play and the move search (kernels +
-               plain versions), the ``run_mcts`` entry point
+  models/    — the dense tower and the conv ResNet
+  search/    — MCTS: the whole-chunk self-play and move searches, the
+               per-simulation engine (kernels + plain versions), the
+               portable engine and rollouts, the ``run_mcts`` entry point
   eval/      — the arena (agents, matches, the gate's compare)
   ops/       — kernel build and ctypes binding
   csrc/      — CUDA sources

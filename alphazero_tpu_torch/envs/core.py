@@ -63,11 +63,19 @@ def line_cells(rows: int, cols: int, win_len: int) -> np.ndarray:
                     ).astype(np.int32)
 
 
+# a game's move rules, as the CUDA search kernels read them
+# (``csrc/sim.cu``): a move fills its cell and any empty cell is legal; a
+# move drops down its column (connect4); an empty cell next to a stone is
+# legal, the centre alone on an empty board (gomoku)
+RULES_CELLS, RULES_GRAVITY, RULES_NEIGHBOURHOOD = 0, 1, 2
+
+
 class Env:
-    """Base class: subclasses set the geometry and implement ``place_cell``
-    and ``valid_mask_board``."""
+    """Base class: subclasses set the geometry and the move ``rules`` and
+    implement ``place_cell`` and ``valid_mask_board``."""
 
     name: str
+    rules: int
     rows: int
     cols: int
     action_dim: int
@@ -152,3 +160,45 @@ class Env:
 
     def observation(self, state: EnvState) -> torch.Tensor:
         return self.observation_from_board(state.board, state.current_player)
+
+    def path_cells(self, root_board, actions, mask) -> torch.Tensor:
+        """Flat cell ``(B, D)`` of each move of a path from ``root_board``;
+        actions are cells unless a game overrides this (connect4)."""
+        return actions
+
+    def apply_path(self, root_board, root_player, actions, mask):
+        """Board after playing ``actions (B, D)`` where ``mask (B, D)``
+        holds, from ``root_board (B, 2, R, C)`` with players alternating
+        from ``root_player (B,)``.  Stones are placed by index, which gives
+        the boards of the JAX package's one-hot sum."""
+        B, D = actions.shape
+        RC = self.rows * self.cols
+        cells = self.path_cells(root_board, actions, mask).long()
+        parity = (root_player.long()[:, None]
+                  + torch.arange(D, device=actions.device)[None]) % 2
+        out = root_board.to(torch.int8).reshape(B, 2, RC).clone()
+        b, d = torch.nonzero(mask, as_tuple=True)
+        out[b, parity[b, d], cells[b, d]] = 1
+        return out.reshape(B, 2, self.rows, self.cols)
+
+    def symmetries(self):
+        """``(cell_perms (S, RC), action_perms (S, A))`` of the game's
+        symmetry group: ``new_plane = plane[cell_perms[s]]``."""
+        raise NotImplementedError
+
+
+def dihedral_perms(rows: int, cols: int) -> np.ndarray:
+    """Cell permutations of the 8 dihedral symmetries of a square board, in
+    the JAX package's order: r0, r0·lr, r0·tb, r90, r90·lr, r90·tb, r180,
+    r270."""
+    if rows != cols:
+        raise ValueError("dihedral-8 needs a square board")
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    perms = []
+    for k in (0, 1, 2, 3):
+        rot = np.rot90(idx, k=k)
+        perms.append(rot.reshape(-1))
+        if k in (0, 1):
+            perms.append(np.fliplr(rot).reshape(-1))
+            perms.append(np.flipud(rot).reshape(-1))
+    return np.stack(perms)

@@ -1,4 +1,4 @@
-"""Batched arena: model-vs-model matches, as the gate plays them.
+"""Batched arena: model-vs-model and model-vs-vanilla matches.
 
 Counterpart of the JAX package's ``eval/arena.py``: B games advance in
 lockstep for ``env.max_moves`` moves.  At move t player ``t % 2`` is to move
@@ -9,8 +9,9 @@ agent searches only its half of the batch: agent_a plays player 0 in games
 Before ``sampling_moves`` an action is drawn from the root visit
 distribution as ``argmax(log π + gumbel)`` over visited actions (the JAX
 package's ``jax.random.categorical``), after it is the first most-visited
-action.  The random draws (root Dirichlet noise and the gumbel noise) come
-from one ``torch.Generator`` unless handed in through ``draws``.
+action.  The random draws (root Dirichlet noise, vanilla search's rollouts
+and the gumbel noise) come from one ``torch.Generator`` unless handed in
+through ``draws``.
 """
 
 from __future__ import annotations
@@ -24,14 +25,13 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import EnvState
-from alphazero_tpu_torch.search.fused import _first_argmax
-from alphazero_tpu_torch.search.mcts import run_mcts
+from alphazero_tpu_torch.search.mcts import first_argmax, run_mcts
 
 
 @dataclasses.dataclass(frozen=True)
 class Agent:
-    """One arena participant: a network evaluator (``eval_fn=None``, vanilla
-    rollouts, is not ported yet) and its search settings."""
+    """One arena participant: a network evaluator, or vanilla search with
+    random rollouts (``eval_fn=None``), and its search settings."""
 
     eval_fn: Optional[Callable] = None
     mcts: MCTSConfig = MCTSConfig()
@@ -55,13 +55,13 @@ def _agent_actions(env, agent: Agent, states: EnvState, t: int,
                    states.move_count, states.done, cfg, generator=generator,
                    noise=noise, device=device)
     if t >= sampling_moves:
-        return _first_argmax(res.visit_counts).to(torch.int32), res
+        return first_argmax(res.visit_counts).to(torch.int32), res
     logits = torch.where(res.visit_counts > 0,
                          torch.log(torch.clamp(res.policy, min=1e-30)),
                          torch.full_like(res.policy, -float("inf")))
     if gumbel is None:
         gumbel = gumbel_noise(logits.shape, generator, device)
-    return _first_argmax(gumbel + logits).to(torch.int32), res
+    return first_argmax(gumbel + logits).to(torch.int32), res
 
 
 def _rows(states: EnvState, sl: slice) -> EnvState:

@@ -1,42 +1,82 @@
-"""Policy/value networks and evaluator adapters.  Only the dense family is
-ported so far."""
+"""Policy/value networks and evaluator adapters: the dense tower and the
+convolutional ResNet."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.func import functional_call
 
 from alphazero_tpu_torch.config import ModelConfig
-from alphazero_tpu_torch.models.dense import (DenseTower, init_params,
-                                              params_from_flax)
+from alphazero_tpu_torch.models import dense, resnet
+from alphazero_tpu_torch.models.dense import DenseTower
+from alphazero_tpu_torch.models.resnet import ResNet
 
 
-def build_model(cfg: ModelConfig, env) -> DenseTower:
-    """The configured network for an env's geometry."""
-    if cfg.family != "dense":
-        raise ValueError(f"model family {cfg.family!r} is not ported yet")
-    return DenseTower(
-        rows=env.rows, cols=env.cols, action_dim=env.action_dim,
-        channels_in=env.feature_dim, win_len=env.win_len,
-        width=cfg.width, blocks=cfg.blocks,
-        dtype=getattr(torch, cfg.compute_dtype),
-    )
+def build_model(cfg: ModelConfig, env):
+    """The configured network (``"dense"`` or ``"resnet"``) for an env's
+    geometry."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "dense":
+        return DenseTower(
+            rows=env.rows, cols=env.cols, action_dim=env.action_dim,
+            channels_in=env.feature_dim, win_len=env.win_len,
+            width=cfg.width, blocks=cfg.blocks, dtype=dtype)
+    if cfg.family == "resnet":
+        return ResNet(
+            rows=env.rows, cols=env.cols, action_dim=env.action_dim,
+            channels_in=env.feature_dim, channels=cfg.channels,
+            blocks=cfg.blocks, dtype=dtype)
+    raise ValueError(f"model family {cfg.family!r} is not ported yet")
 
 
-def make_eval_fn(model: DenseTower, params: dict):
+def init_params(model, generator: torch.Generator) -> dict:
+    """Fresh parameters drawn as flax initialises them: truncated-normal
+    LeCun kernels (fan-in scaling, the fan-in of a conv kernel being
+    ``in·kh·kw``), zero biases, unit LayerNorm scales."""
+    out = {}
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            out[name] = torch.zeros_like(p)
+        elif p.dim() == 1:                  # LayerNorm scale
+            out[name] = torch.ones_like(p)
+        else:
+            fan_in = p.numel() // p.shape[0]
+            # truncated to ±2σ; 0.8796 is that truncation's standard deviation
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            w = torch.empty(p.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            out[name] = (w * std).to(p.device)
+    return out
+
+
+def params_from_flax(params_np) -> dict:
+    """Flax parameter tree (numpy leaves) of either family → the torch
+    module's ``state_dict``."""
+    if "stem_ln" in params_np:
+        return resnet.params_from_flax(params_np)
+    return dense.params_from_flax(params_np)
+
+
+def make_eval_fn(model, params: dict):
     """Batched evaluator ``obs (B, F, R, C) → (softmax over ALL actions,
     value)``.  There is no legality mask: illegal actions' priors are never
-    selected by the search.  ``eval_fn.dense_spec = (model, params)`` lets
-    ``search.mcts.run_mcts`` dispatch to the whole-move search."""
+    selected by the search.  For the dense family ``eval_fn.dense_spec =
+    (model, params)`` lets ``search.mcts.run_mcts`` dispatch to the
+    whole-move search; other families search on the per-simulation
+    engine."""
 
     @torch.no_grad()
     def eval_fn(obs):
         logits, value = functional_call(model, params, (obs,))
         return torch.softmax(logits, dim=-1), value
 
-    eval_fn.dense_spec = (model, params)
+    if isinstance(model, DenseTower):
+        eval_fn.dense_spec = (model, params)
     return eval_fn
 
 
-__all__ = ["DenseTower", "build_model", "init_params", "make_eval_fn",
-           "params_from_flax"]
+__all__ = ["DenseTower", "ResNet", "build_model", "init_params",
+           "make_eval_fn", "params_from_flax"]

@@ -12,8 +12,6 @@ Parameter names follow the flax tree (``stem``, ``block_{i}.ln/fc1/fc2``,
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -92,26 +90,6 @@ class DenseTower(nn.Module):
         v = F.relu(self.value_fc(h32))
         value = torch.tanh(self.value_head(v))[:, 0]
         return logits, value
-
-
-def init_params(model: DenseTower, generator: torch.Generator) -> dict:
-    """Fresh parameters drawn as flax initialises them: truncated-normal
-    LeCun kernels (fan-in scaling), zero biases, unit LayerNorm scales."""
-    out = {}
-    for name, p in model.named_parameters():
-        if name.endswith("ln.weight"):
-            out[name] = torch.ones_like(p)
-        elif name.endswith("bias"):
-            out[name] = torch.zeros_like(p)
-        else:
-            fan_in = p.shape[1]
-            # truncated to ±2σ; 0.8796 is that truncation's standard deviation
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = torch.empty(p.shape, dtype=torch.float32)
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            out[name] = (w * std).to(p.device)
-    return out
 
 
 def params_from_flax(params_np) -> dict:

@@ -7,9 +7,11 @@ the source and flags, so an edited source is rebuilt at its next use.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every C entry point takes pointers as ``void*`` (``tensor.data_ptr()``), the
-stream as ``void*`` (``torch.cuda.current_stream().cuda_stream``), launches on
-that stream and returns ``cudaGetLastError()``; :class:`CudaKernel` raises
-when it is not 0 and counts each successful launch in ``launches``.
+stream as ``void*`` (:func:`stream`), launches on that stream and returns
+``cudaGetLastError()``; :class:`CudaKernel` raises when it is not 0 and
+counts each successful launch in ``launches``.  A wrapper runs its plain
+PyTorch version only for CPU tensors (:func:`plain`) and checks every
+operand it passes to a kernel (:func:`check`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "alphazero_tpu_torch"
@@ -30,10 +34,11 @@ BASE_FLAGS = ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # source → extra flags.  The search kernels must reproduce the plain
-# version's float32 arithmetic bit for bit: no multiply-add contraction.
+# versions' float32 arithmetic bit for bit: no multiply-add contraction.
 SOURCES = {
     "dense_forward.cu": [],
     "search.cu": ["-fmad=false"],
+    "sim.cu": ["-fmad=false"],
 }
 
 _LIBS: dict = {}
@@ -132,3 +137,29 @@ class CudaKernel:
             msg = load(self.source).az_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
+
+
+def plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs the plain version: yes for a CPU tensor, no for
+    a CUDA tensor (the kernel runs); other devices have neither."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel or plain version for device {t.device}")
+    return False
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, for a kernel launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(t: torch.Tensor, dtype, shape, device, name):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel operand must be."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want {dtype} {tuple(shape)} contiguous on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")

@@ -50,8 +50,10 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import _make_line_matrix, line_cells
-from alphazero_tpu_torch.ops.build import CudaKernel
-from alphazero_tpu_torch.search.mcts import NEG, SearchResult, prep_priors
+from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
+from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
+                                             dirichlet_noise, first_argmax,
+                                             root_prior, search_inputs)
 
 NO_CHILD = -1
 ILLEGAL = -2
@@ -193,33 +195,10 @@ K_DENSE = CudaKernel("dense_forward.cu", "az_dense_forward", [
     _P, _P, _P])                 # probs, value, stream
 
 
-def _plain(t: torch.Tensor) -> bool:
-    """Whether a wrapper runs the plain version: yes for a CPU tensor, no for
-    a CUDA tensor (the kernel runs); other devices have neither."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel or plain version for device {t.device}")
-    return False
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check(t: torch.Tensor, dtype, shape, device, name):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want {dtype} {tuple(shape)} contiguous on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
-
-
 def dense_forward(obs: torch.Tensor, packed: dict):
     """The in-search dense forward: ``az_dense_forward`` for CUDA tensors,
     :func:`dense_forward_reference` for CPU tensors."""
-    if _plain(obs):
+    if plain(obs):
         return dense_forward_reference(obs, packed)
     dev = obs.device
     B, FRC = obs.shape
@@ -231,7 +210,7 @@ def dense_forward(obs: torch.Tensor, packed: dict):
     if D % 8 or DV % 8 or kp % 16 or A > 32:
         raise ValueError(f"unsupported widths D={D} DV={DV} Kp={kp} A={A}")
     bf, f = torch.bfloat16, torch.float32
-    _check(obs, f, (B, FRC), dev, "obs")
+    check(obs, f, (B, FRC), dev, "obs")
     for name, dt, shape in (
             ("stem_w", bf, (D, kp)), ("stem_b", f, (D,)),
             ("ln_s", f, (nb, D)), ("ln_b", f, (nb, D)),
@@ -242,7 +221,7 @@ def dense_forward(obs: torch.Tensor, packed: dict):
             ("vfc_w", bf, (DV, D)), ("vfc_b", f, (DV,)),
             ("vh_w", f, (DV,)), ("vh_b", f, (1,)),
             ("lines", torch.int32, (L, K))):
-        _check(packed[name], dt, shape, dev, name)
+        check(packed[name], dt, shape, dev, name)
     probs = torch.empty((B, A), dtype=f, device=dev)
     value = torch.empty((B,), dtype=f, device=dev)
     p = packed
@@ -255,7 +234,7 @@ def dense_forward(obs: torch.Tensor, packed: dict):
             p["pol_w"].data_ptr(), p["pol_b"].data_ptr(), A,
             p["vfc_w"].data_ptr(), p["vfc_b"].data_ptr(), DV,
             p["vh_w"].data_ptr(), p["vh_b"].data_ptr(), D,
-            probs.data_ptr(), value.data_ptr(), _stream(obs))
+            probs.data_ptr(), value.data_ptr(), stream(obs))
     return probs, value
 
 
@@ -304,18 +283,12 @@ class Tree:
                 ("valid", torch.bool, (B, A)),
                 ("obs", torch.float32, (B, self.obs_dim)),
                 ("lines", torch.int32, tuple(self.lines.shape))):
-            _check(getattr(self, name), dt, shape, device, f"tree.{name}")
+            check(getattr(self, name), dt, shape, device, f"tree.{name}")
 
 
 def _heights(board: torch.Tensor) -> torch.Tensor:
     """Stones per column ``(B, C)`` int64 of ``(B, 2, R, C)`` boards."""
     return (board[:, 0].long() + board[:, 1].long()).sum(dim=1)
-
-
-def _first_argmax(x):
-    """First index of the maximum along the last dim (ascending tie-break)."""
-    m = x.max(dim=-1, keepdim=True).values
-    return (x == m).to(torch.int8).argmax(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +365,7 @@ def descend_leaf_reference(env, cfg: MCTSConfig, tree: Tree, board, player,
         if cfg.formula == "alphazero":
             explore = c_puct * explore
         ucb = torch.where(ch == ILLEGAL, torch.full_like(q, NEG), q + explore)
-        act = _first_argmax(ucb)
+        act = first_argmax(ucb)
         c_sel = ch[ar, act]
         v_sel = cf[ar, act]
         e_sel = ce[ar, act]
@@ -479,7 +452,7 @@ def move_tail_reference(env, cfg: MCTSConfig, tree: Tree, u, board, player,
     root_q = tree.val[:, 0] / torch.clamp(torch.floor(tree.visit[:, 0]), min=1.0)
     total = torch.clamp(counts.sum(-1, keepdim=True), min=1.0)
     policy = counts / total
-    greedy = _first_argmax(counts)
+    greedy = first_argmax(counts)
     acc = torch.zeros(B, dtype=torch.float32, device=dev)
     cum = []
     for a in range(A):                       # sequential float32 sum
@@ -582,53 +555,53 @@ KERNELS = [K_DENSE, K_ROOT_OBS, K_ROOT_INIT, K_DESCEND, K_APPLY, K_TAIL,
 
 def _board_check(env, board, player, mc, dev):
     B = board.shape[0]
-    _check(board, torch.int8, (B, 2, env.rows, env.cols), dev, "board")
-    _check(player, torch.int32, (B,), dev, "player")
+    check(board, torch.int8, (B, 2, env.rows, env.cols), dev, "board")
+    check(player, torch.int32, (B,), dev, "player")
     if mc is not None:
-        _check(mc, torch.int32, (B,), dev, "mc")
+        check(mc, torch.int32, (B,), dev, "mc")
 
 
 def root_obs(env, board, player, rec_obs_m):
     """``az_root_obs`` for CUDA tensors, :func:`root_obs_reference` for CPU tensors."""
-    if _plain(board):
+    if plain(board):
         return root_obs_reference(env, board, player, rec_obs_m)
     dev = board.device
     B = board.shape[0]
     RC = env.rows * env.cols
     F = env.feature_dim
     _board_check(env, board, player, None, dev)
-    _check(rec_obs_m, torch.int8, (B, F, env.rows, env.cols), dev, "rec_obs")
+    check(rec_obs_m, torch.int8, (B, F, env.rows, env.cols), dev, "rec_obs")
     obs = torch.empty((B, F * RC), dtype=torch.float32, device=dev)
     K_ROOT_OBS(board.data_ptr(), player.data_ptr(), obs.data_ptr(),
-               rec_obs_m.data_ptr(), B, RC, F, _stream(board))
+               rec_obs_m.data_ptr(), B, RC, F, stream(board))
     return obs
 
 
 def root_init(env, cfg: MCTSConfig, tree: Tree, probs, value, noise_m, board):
     """``az_root_init`` for CUDA tensors, :func:`root_init_reference` for CPU tensors."""
-    if _plain(board):
+    if plain(board):
         return root_init_reference(env, cfg, tree, probs, value, noise_m,
                                    board)
     dev = board.device
     B, N, A = tree.B, tree.N, tree.A
     tree.check(dev)
-    _check(probs, torch.float32, (B, A), dev, "probs")
-    _check(value, torch.float32, (B,), dev, "value")
-    _check(board, torch.int8, (B, 2, env.rows, env.cols), dev, "board")
+    check(probs, torch.float32, (B, A), dev, "probs")
+    check(value, torch.float32, (B,), dev, "value")
+    check(board, torch.int8, (B, 2, env.rows, env.cols), dev, "board")
     if noise_m is not None:
-        _check(noise_m, torch.float32, (A, B), dev, "noise")
+        check(noise_m, torch.float32, (A, B), dev, "noise")
     K_ROOT_INIT(tree.visit.data_ptr(), tree.val.data_ptr(),
                 tree.child.data_ptr(), tree.prior.data_ptr(),
                 probs.data_ptr(), value.data_ptr(),
                 None if noise_m is None else noise_m.data_ptr(),
                 board.data_ptr(), B, N, A, env.rows, env.cols,
-                float(cfg.dirichlet_eps), _stream(board))
+                float(cfg.dirichlet_eps), stream(board))
 
 
 def descend_leaf(env, cfg: MCTSConfig, tree: Tree, board, player, mc,
                  slot: int):
     """``az_descend_leaf`` for CUDA tensors, :func:`descend_leaf_reference` for CPU tensors."""
-    if _plain(board):
+    if plain(board):
         return descend_leaf_reference(env, cfg, tree, board, player, mc, slot)
     dev = board.device
     B, N, A, dcap = tree.B, tree.N, tree.A, tree.dcap
@@ -644,23 +617,23 @@ def descend_leaf(env, cfg: MCTSConfig, tree: Tree, board, player, mc,
               B, N, A, env.rows, env.cols, env.feature_dim, L, K, dcap,
               env.max_moves,
               int(slot), int(cfg.formula == "alphazero"), float(cfg.c_puct),
-              _stream(board))
+              stream(board))
 
 
 def apply(tree: Tree, slot: int, probs, value):
     """``az_apply`` for CUDA tensors, :func:`apply_reference` for CPU tensors."""
-    if _plain(probs):
+    if plain(probs):
         return apply_reference(tree, slot, probs, value)
     dev = probs.device
     B, N, A, dcap = tree.B, tree.N, tree.A, tree.dcap
     tree.check(dev)
-    _check(probs, torch.float32, (B, A), dev, "probs")
-    _check(value, torch.float32, (B,), dev, "value")
+    check(probs, torch.float32, (B, A), dev, "probs")
+    check(value, torch.float32, (B,), dev, "value")
     K_APPLY(tree.visit.data_ptr(), tree.val.data_ptr(),
             tree.child.data_ptr(), tree.prior.data_ptr(),
             tree.path.data_ptr(), tree.pend.data_ptr(), tree.valid.data_ptr(),
             probs.data_ptr(), value.data_ptr(), B, N, A, dcap, int(slot),
-            _stream(probs))
+            stream(probs))
 
 
 _REC_TYPES = {"policy": torch.float32, "player": torch.int32,
@@ -670,15 +643,15 @@ _REC_TYPES = {"policy": torch.float32, "player": torch.int32,
 
 def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec):
     """``az_move_tail`` for CUDA tensors, :func:`move_tail_reference` for CPU tensors."""
-    if _plain(board):
+    if plain(board):
         return move_tail_reference(env, cfg, tree, u, board, player, mc, rec)
     dev = board.device
     B, N, A = tree.B, tree.N, tree.A
     tree.check(dev)
-    _check(u, torch.float32, (B,), dev, "unif")
+    check(u, torch.float32, (B,), dev, "unif")
     _board_check(env, board, player, mc, dev)
     for name, dt in _REC_TYPES.items():
-        _check(rec[name], dt, (B, A) if name == "policy" else (B,), dev,
+        check(rec[name], dt, (B, A) if name == "policy" else (B,), dev,
                f"rec.{name}")
     L, K = tree.lines.shape
     K_TAIL(tree.visit.data_ptr(), tree.val.data_ptr(), tree.child.data_ptr(),
@@ -686,30 +659,30 @@ def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec):
            tree.lines.data_ptr(),
            *(rec[name].data_ptr() for name in _REC_TYPES),
            B, N, A, env.rows, env.cols, L, K, env.max_moves,
-           int(cfg.temperature_moves), _stream(board))
+           int(cfg.temperature_moves), stream(board))
 
 
 def move_root_init(tree: Tree, root_prior, value, live):
     """``az_move_root_init`` for CUDA tensors,
     :func:`move_root_init_reference` for CPU tensors."""
-    if _plain(root_prior):
+    if plain(root_prior):
         return move_root_init_reference(tree, root_prior, value, live)
     dev = root_prior.device
     B, N, A = tree.B, tree.N, tree.A
     tree.check(dev)
-    _check(root_prior, torch.float32, (B, A), dev, "root_prior")
-    _check(value, torch.float32, (B,), dev, "value")
-    _check(live, torch.bool, (B,), dev, "live")
+    check(root_prior, torch.float32, (B, A), dev, "root_prior")
+    check(value, torch.float32, (B,), dev, "value")
+    check(live, torch.bool, (B,), dev, "live")
     K_MOVE_ROOT_INIT(tree.visit.data_ptr(), tree.val.data_ptr(),
                      tree.child.data_ptr(), tree.prior.data_ptr(),
                      root_prior.data_ptr(), value.data_ptr(), live.data_ptr(),
-                     B, N, A, _stream(root_prior))
+                     B, N, A, stream(root_prior))
 
 
 def root_counts(tree: Tree):
     """``az_root_counts`` for CUDA tensors, :func:`root_counts_reference`
     for CPU tensors."""
-    if _plain(tree.visit):
+    if plain(tree.visit):
         return root_counts_reference(tree)
     dev = tree.visit.device
     B, N, A = tree.B, tree.N, tree.A
@@ -719,7 +692,7 @@ def root_counts(tree: Tree):
     root_q = torch.empty((B,), dtype=torch.float32, device=dev)
     K_ROOT_COUNTS(tree.visit.data_ptr(), tree.val.data_ptr(),
                   tree.child.data_ptr(), counts.data_ptr(), policy.data_ptr(),
-                  root_q.data_ptr(), B, N, A, _stream(tree.visit))
+                  root_q.data_ptr(), B, N, A, stream(tree.visit))
     return counts, policy, root_q
 
 
@@ -738,46 +711,21 @@ DISPATCH = SimpleNamespace(root_obs=root_obs,
 
 
 # ---------------------------------------------------------------------------
-# noise
-# ---------------------------------------------------------------------------
-
-def _gamma(alpha: float, n: int, generator, device) -> torch.Tensor:
-    """``n`` Gamma(alpha) draws: Marsaglia–Tsang, with the ``U^(1/alpha)``
-    boost for alpha < 1 (``torch.distributions.Gamma`` takes no
-    generator)."""
-    a = alpha + 1.0 if alpha < 1.0 else alpha
-    d = a - 1.0 / 3.0
-    c = 1.0 / np.sqrt(9.0 * d)
-    out = torch.empty(n, dtype=torch.float32, device=device)
-    todo = torch.arange(n, device=device)
-    while todo.numel():
-        k = todo.numel()
-        x = torch.randn(k, generator=generator, device=device)
-        u = torch.rand(k, generator=generator, device=device)
-        v = (1.0 + c * x) ** 3
-        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
-                        + d * torch.log(v.clamp(min=1e-30)))
-        out[todo[ok]] = d * v[ok]
-        todo = todo[~ok]
-    if alpha < 1.0:
-        out = out * torch.rand(n, generator=generator,
-                               device=device) ** (1.0 / alpha)
-    return out
-
-
-def dirichlet_noise(M: int, A: int, B: int, alpha: float, generator,
-                    device) -> torch.Tensor:
-    """``(M, A, B)`` symmetric Dirichlet(alpha) noise, normalized over A."""
-    g = _gamma(alpha, M * A * B, generator, device).reshape(M, A, B)
-    return g / g.sum(dim=1, keepdim=True)
-
-
-# ---------------------------------------------------------------------------
 # the chunk
 # ---------------------------------------------------------------------------
 
+def require_connect4(env):
+    """The whole-chunk and move searches are ported for connect4 only (the
+    JAX package's also serve tictactoe and gomoku: ROADMAP.md)."""
+    if env.name != "connect4":
+        raise NotImplementedError(
+            f"the dense tower's fused searches are ported for connect4 only, "
+            f"not {env.name!r} (ROADMAP.md module 11)")
+
+
 def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
            noise, unif, evaluator):
+    require_connect4(env)
     B = boards.shape[0]
     A, F = env.action_dim, env.feature_dim
     R, C = env.rows, env.cols
@@ -868,35 +816,19 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
 # the move search (the arena's and the gate's search)
 # ---------------------------------------------------------------------------
 
-def move_root(env, cfg: MCTSConfig, eval_fn, board, player, mc, dones,
-              use_dirichlet, noise):
-    """The move search's root, on the host: one ``eval_fn`` forward, the
-    Dirichlet mix ``(1-eps)·p + eps·noise`` where ``use_dirichlet`` holds,
-    then ``NEG`` where an action is illegal or the game finished.  Returns
-    ``(root_prior (B, A), value (B,), live (B,))``."""
-    probs0, value0 = eval_fn(env.observation_from_board(board, player))
-    probs0, value0 = probs0.to(torch.float32), value0.to(torch.float32)
-    if noise is not None:
-        noisy = (1.0 - cfg.dirichlet_eps) * probs0 + cfg.dirichlet_eps * noise
-        probs0 = torch.where(use_dirichlet[:, None], noisy, probs0)
-    live = ~dones.to(device=board.device, dtype=torch.bool)
-    root_prior = torch.where(
-        live[:, None], prep_priors(probs0, env.valid_mask_board(board, mc)),
-        torch.full_like(probs0, NEG))
-    return root_prior.contiguous(), value0.contiguous(), live.contiguous()
-
-
 def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
                move_counts, dones, use_dirichlet, noise, evaluator) -> Tree:
-    """The move search's tree after its root and simulations 1..S-1."""
+    """The move search's tree after its root (evaluated on the host) and
+    simulations 1..S-1."""
+    require_connect4(env)
     B = boards.shape[0]
     board = boards.to(torch.int8).contiguous()
     player = players.to(torch.int32).contiguous()
     mc = move_counts.to(torch.int32).contiguous()
-    root_prior, value0, live = move_root(env, cfg, eval_fn, board, player, mc,
-                                         dones, use_dirichlet, noise)
+    prior0, value0, live = root_prior(env, cfg, eval_fn, board, player, mc,
+                                      dones, use_dirichlet, noise)
     tree = Tree(env, B, cfg.num_simulations, boards.device)
-    ops.move_root_init(tree, root_prior, value0, live)
+    ops.move_root_init(tree, prior0, value0, live)
     for slot in range(1, cfg.num_simulations):
         ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
         probs, value = evaluator(tree.obs)
@@ -909,24 +841,6 @@ def _move(ops, *args):
     return SearchResult(visit_counts=counts, policy=policy, root_q=root_q)
 
 
-def _move_inputs(env, cfg, boards, players, move_counts, dones, generator,
-                 use_dirichlet, noise, dev):
-    B = boards.shape[0]
-    if use_dirichlet is None:
-        use_dirichlet = torch.full((B,), bool(cfg.use_dirichlet), device=dev)
-        drawn = bool(cfg.use_dirichlet)
-    else:
-        use_dirichlet = use_dirichlet.to(device=dev, dtype=torch.bool)
-        drawn = True
-    if noise is None and drawn:
-        noise = dirichlet_noise(1, env.action_dim, B, cfg.dirichlet_alpha,
-                                generator, dev)[0].T
-    if noise is not None:
-        noise = noise.to(dev, torch.float32).contiguous()
-    return (boards.to(dev), players.to(dev), move_counts.to(dev),
-            dones.to(dev), use_dirichlet, noise)
-
-
 def move_search_reference(env, model, params, eval_fn, boards, players,
                           move_counts, dones, cfg: MCTSConfig, *,
                           generator=None, use_dirichlet=None, noise=None,
@@ -934,8 +848,8 @@ def move_search_reference(env, model, params, eval_fn, boards, players,
     """Plain PyTorch version of :func:`run_mcts_fused`, on the inputs'
     device."""
     dev = boards.device
-    args = _move_inputs(env, cfg, boards, players, move_counts, dones,
-                        generator, use_dirichlet, noise, dev)
+    args = search_inputs(env, cfg, boards, players, move_counts, dones,
+                         generator, use_dirichlet, noise, dev)
     if evaluator is None:
         packed = pack_dense_params(model, params, dev)
         evaluator = lambda obs: dense_forward_reference(obs, packed)  # noqa: E731
@@ -964,8 +878,8 @@ def run_mcts_fused(env, model, params, eval_fn, boards, players, move_counts,
     kernel; on the CPU the wrappers run the plain versions.
     """
     dev = resolve_device(device)
-    args = _move_inputs(env, cfg, boards, players, move_counts, dones,
-                        generator, use_dirichlet, noise, dev)
+    args = search_inputs(env, cfg, boards, players, move_counts, dones,
+                         generator, use_dirichlet, noise, dev)
     if evaluator is None:
         packed = pack_dense_params(model, params, dev)
         evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731

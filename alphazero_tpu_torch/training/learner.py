@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``training/learner.py``.  Loss = soft-target
 policy cross-entropy + value MSE + ``l2_coeff`` · Σw² over every parameter
 not named ``bias`` (LayerNorm scales included, as in the JAX package).  The
-network is the ``DenseTower`` module under autograd, in plain PyTorch: the
-JAX learner runs no Pallas kernel.  Adam is created fresh for every epoch;
+network (the dense tower or the ResNet) runs under autograd through
+``functional_call``, in plain PyTorch: the JAX learner runs no Pallas
+kernel.  Adam is created fresh for every epoch;
 ``torch.optim.Adam``'s defaults (β 0.9/0.999, eps 1e-8) are optax's.  Float32
 matrix products stay full float32 (PyTorch's default; no TF32).
 """
@@ -40,7 +41,7 @@ def l2_penalty(params: dict) -> torch.Tensor:
 
 def loss_fn(model, params: dict, obs, policy_target, value_target,
             l2_coeff: float):
-    """``(loss, TrainMetrics)`` of one batch (the dense family has no
+    """``(loss, TrainMetrics)`` of one batch (neither ported family has
     dropout)."""
     logits, value = functional_call(model, params, (obs,))
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)

@@ -4,14 +4,17 @@ Counterpart of the JAX package's ``training/loop.py``.  The best parameters
 generate the self-play data; the contender (``params_new``, a copy of the
 best) trains on it; the gate plays contender against best and promotes the
 contender when its win rate exceeds ``gate_threshold``, else reverts it.
-Collection doubles after ``reject_double_after`` rejections in a row.
-Checkpoints, the metrics logger and the vanilla sanity match are module 9
-of ROADMAP.md (the match needs module 3's rollout search) and are not
-ported yet.
+Collection doubles after ``reject_double_after`` rejections in a row, and
+every ``vanilla_eval_every`` promotions the best parameters play a sanity
+match against vanilla (rollout) search.  Any ported family trains: the
+dense tower collects through the whole-chunk search, the ResNet move by
+move on the per-simulation engine.  Checkpoints, the metrics logger and
+``config.json`` are module 9 of ROADMAP.md and are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -59,6 +62,7 @@ class Trainer:
         self.outer_iter = 0
         self.reject_count = 0
         self.last_gate_score = None     # [best, contender, draws]
+        self.last_vanilla_score = None  # [vanilla, model, draws]
         self._syms = Symmetries(self.env, self.device)
         self._chunk_steps = (cfg.train.selfplay_chunk_steps
                              or SELFPLAY_CHUNK_STEPS)
@@ -142,12 +146,27 @@ class Trainer:
         self.last_gate_score = score.tolist()
         return rate
 
+    def vanilla_sanity_match(self, games: int = 2) -> float:
+        """The best parameters against vanilla search with
+        ``min(num_simulations · max(version, 1), 400)`` rollout simulations
+        → the model's win rate (draws 0.5); the score is kept in
+        ``last_vanilla_score`` as [vanilla, model, draws]."""
+        sims = min(self.cfg.mcts.num_simulations * max(self.version, 1), 400)
+        vanilla = Agent(None, dataclasses.replace(self.cfg.mcts,
+                                                  num_simulations=sims))
+        model = Agent(make_eval_fn(self.model, self.params_best),
+                      self.cfg.mcts)
+        rate, score = compare(self.env, vanilla, model, games,
+                              generator=self.generator, device=self.device)
+        self.last_vanilla_score = score.tolist()
+        return rate
+
     # ------------------------------------------------------------ iteration
     def iterate(self, vanilla_eval: bool = True) -> dict:
-        """One outer iteration.  A vanilla sanity match that falls due
-        (``vanilla_eval`` and ``version % vanilla_eval_every == 0`` after a
-        promotion) raises ``NotImplementedError``: it needs the rollout
-        search of module 3."""
+        """One outer iteration.  With ``vanilla_eval``, a promotion that
+        brings ``version`` to a multiple of ``vanilla_eval_every`` is
+        followed by :meth:`vanilla_sanity_match`, whose rate the result
+        holds as ``vanilla_win_rate``."""
         t = self.cfg.train
         self.outer_iter += 1
         games = t.games_per_iter
@@ -160,22 +179,21 @@ class Trainer:
         self._sync()
         gate_seconds = time.perf_counter() - t0
         accepted = rate > t.gate_threshold
+        extra = {}
         if accepted:
             self.params_best = _copy(self.params_new)
             self.version += 1
             self.reject_count = 0
             if vanilla_eval and self.version % t.vanilla_eval_every == 0:
-                raise NotImplementedError(
-                    "the vanilla sanity match needs rollout search "
-                    "(ROADMAP.md modules 3 and 9), not ported yet; call "
-                    "iterate(vanilla_eval=False)")
+                extra["vanilla_win_rate"] = self.vanilla_sanity_match()
         else:
             self.params_new = _copy(self.params_best)
             self.reject_count += 1
         return {"iter": self.outer_iter, "version": self.version,
                 "accepted": bool(accepted), "gate_rate": rate, **cm, **tm,
                 "collect_seconds": cm["seconds"],
-                "train_seconds": tm["seconds"], "gate_seconds": gate_seconds}
+                "train_seconds": tm["seconds"], "gate_seconds": gate_seconds,
+                **extra}
 
     def run(self, iterations=None, vanilla_eval: bool = True):
         n = iterations or self.cfg.train.outer_iterations

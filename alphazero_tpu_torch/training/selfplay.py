@@ -1,10 +1,17 @@
-"""Batched self-play: B games advance in lockstep, M moves per chunk.
+"""Batched self-play: B games advance in lockstep.
 
-Counterpart of the JAX package's ``training/selfplay.py`` chunk path
-(``selfplay_chunk_fused``): one call of the whole-chunk search
-(``search/fused.py``) plays M moves for every game, then its per-move
-records are folded into the per-game trajectory slabs and every finished
-game's slab is flushed into the replay ring, once per done event.
+Counterpart of the JAX package's ``training/selfplay.py``.  Two runners:
+
+* the dense tower's chunk path (``selfplay_chunk_fused``): one call of the
+  whole-chunk search (``search/fused.py``) plays M moves for every game,
+  then its per-move records are folded into the per-game trajectory slabs
+  and every finished game's slab is flushed into the replay ring, once per
+  done event;
+* every other family, one move at a time (:func:`selfplay_step`): a
+  ``run_mcts`` search of all games (the per-simulation engine for the
+  ResNet), the action (visit-sampled before ``temperature_moves``, the
+  first most-visited after), the env step, the position recorded in its
+  game's slab, finished games flushed into the ring and reset.
 """
 
 from __future__ import annotations
@@ -18,8 +25,11 @@ from alphazero_tpu_torch.config import MCTSConfig, ReplayConfig
 from alphazero_tpu_torch.data.replay import ReplayBuffer, add_games
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import EnvState
+from alphazero_tpu_torch.eval.arena import gumbel_noise
+from alphazero_tpu_torch.models import make_eval_fn
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.search.fused import run_selfplay_chunk
+from alphazero_tpu_torch.search.mcts import first_argmax, run_mcts
 
 
 @dataclasses.dataclass
@@ -107,25 +117,85 @@ def selfplay_chunk(env, model, params, mcts_cfg: MCTSConfig,
         move_count=rec["mc_final"],
         winner=torch.full((B,), -1, dtype=torch.int32, device=dev),
         done=torch.zeros((B,), dtype=torch.bool, device=dev))
-    results = sp.results + torch.stack(
-        [(done & (winner == 0)).sum(), (done & (winner == 1)).sum(),
-         (done & (winner < 0)).sum()])
+    results = _results_update(sp.results, done, winner)
     return dataclasses.replace(
         sp, env_state=env_state, traj_obs=traj_obs, traj_policy=traj_policy,
         t=rec["mc_final"], games_done=sp.games_done + done.sum(),
         env_steps=sp.env_steps + M * B, results=results), buffer
 
 
+def _results_update(results, done, winner):
+    """W/L/D counters: player-0 wins, player-1 wins, draws."""
+    return results + torch.stack([(done & (winner == 0)).sum(),
+                                  (done & (winner == 1)).sum(),
+                                  (done & (winner < 0)).sum()])
+
+
+def selfplay_step(env, eval_fn, mcts_cfg: MCTSConfig, sp: SelfPlayState,
+                  buffer: ReplayBuffer, *, noise=None, gumbel=None):
+    """One lockstep move for all B games (B env steps), the JAX package's
+    ``selfplay_step``.  The search's root Dirichlet ``noise (B, A)`` and the
+    action's ``gumbel (B, A)`` draws come from ``sp.generator`` unless
+    given.  Before ``temperature_moves`` an action is
+    ``argmax(log π + gumbel)`` over the visited actions (the JAX package's
+    ``jax.random.categorical``), after it the first most-visited action.
+    Returns the new ``(sp, buffer)``; the buffer is updated in place."""
+    s = sp.env_state
+    dev = s.board.device
+    B, L = sp.traj_policy.shape[:2]
+    res = run_mcts(env, eval_fn, s.board, s.current_player, s.move_count,
+                   s.done, mcts_cfg, generator=sp.generator, noise=noise,
+                   device=dev)
+    obs = env.observation(s).to(torch.int8)
+    logits = torch.where(res.visit_counts > 0,
+                         torch.log(torch.clamp(res.policy, min=1e-30)),
+                         torch.full_like(res.policy, -float("inf")))
+    if gumbel is None:
+        gumbel = gumbel_noise(logits.shape, sp.generator, dev)
+    sampled = first_argmax(gumbel.to(dev) + logits)
+    greedy = first_argmax(res.visit_counts)
+    action = torch.where(sp.t < mcts_cfg.temperature_moves, sampled,
+                         greedy).to(torch.int32)
+    new = env.step(s, action)
+    done, winner = new.done, new.winner
+    # record the position before the move in its game's slab, then flush
+    # finished games into the ring
+    ar = torch.arange(B, device=dev)
+    t = sp.t.long()
+    traj_obs, traj_policy = sp.traj_obs.clone(), sp.traj_policy.clone()
+    traj_obs[ar, t] = obs
+    traj_policy[ar, t] = res.policy
+    buffer = add_games(buffer, traj_obs, traj_policy, sp.t + 1, winner, done)
+    fresh = env.init(B, dev)
+    env_state = EnvState(*(torch.where(
+        done.reshape((B,) + (1,) * (getattr(new, f.name).dim() - 1)),
+        getattr(fresh, f.name), getattr(new, f.name))
+        for f in dataclasses.fields(EnvState)))
+    return dataclasses.replace(
+        sp, env_state=env_state, traj_obs=traj_obs, traj_policy=traj_policy,
+        t=torch.where(done, 0, sp.t + 1).to(torch.int32),
+        games_done=sp.games_done + done.sum(), env_steps=sp.env_steps + B,
+        results=_results_update(sp.results, done, winner)), buffer
+
+
 def make_selfplay_runner(env, model, mcts_cfg: MCTSConfig,
                          replay_cfg: ReplayConfig, num_steps: int) -> Callable:
     """``runner(params, sp, buffer) -> (sp, buffer)`` advancing every game
-    ``num_steps`` moves through the whole-chunk search."""
-    if not isinstance(model, DenseTower) or mcts_cfg.leaf_batch != 1:
-        raise ValueError("self-play is ported for the dense family with "
-                         "sequential simulations (leaf_batch=1) only")
+    ``num_steps`` moves: through the whole-chunk search for the dense
+    tower, through ``num_steps`` :func:`selfplay_step` calls otherwise."""
+    if mcts_cfg.leaf_batch != 1:
+        raise ValueError("self-play is ported with sequential simulations "
+                         "(leaf_batch=1) only")
+    if isinstance(model, DenseTower):
+        def run(params, sp: SelfPlayState, buffer: ReplayBuffer):
+            return selfplay_chunk(env, model, params, mcts_cfg, replay_cfg,
+                                  sp, buffer, num_steps)
+        return run
 
-    def run(params, sp: SelfPlayState, buffer: ReplayBuffer):
-        return selfplay_chunk(env, model, params, mcts_cfg, replay_cfg, sp,
-                              buffer, num_steps)
+    def run_steps(params, sp: SelfPlayState, buffer: ReplayBuffer):
+        eval_fn = make_eval_fn(model, params)
+        for _ in range(num_steps):
+            sp, buffer = selfplay_step(env, eval_fn, mcts_cfg, sp, buffer)
+        return sp, buffer
 
-    return run
+    return run_steps

@@ -30,8 +30,22 @@ Phases (any failure exits non-zero before the final line):
      (collect, train, gate); seconds of collect, train and gate, checks on
      the gate's searches, the score, the loss and the promote/revert
      bookkeeping; then one gate move (both agents) profiled;
-then the main-path summary, one JSON line of kernels, the card line, and the
-device JSON.
+  8. the per-simulation engine (kernels 3 and 4, csrc/sim.cu) on the card
+     against its plain version, bit for bit, under the exact stub evaluator:
+     connect4 at self-play's B=512 and the gate's B=128, S=200, with
+     Dirichlet noise fed to both and live, won and drawn roots mixed, and
+     tictactoe at B=256, S=50; then az_sim_step
+     and az_sim_flush each against its plain version on a snapshot of a
+     real-weights connect4-resnet search, with times and bounds; and one
+     vanilla (rollout) search on the card;
+  9. the second model family's outer iteration,
+     ``Trainer(preset("connect4-resnet")).iterate(vanilla_eval=False)`` at
+     full width: launch counts measured per phase (the dense kernels must
+     show 0), seconds of collect, train and gate, env-steps/s, checks on the
+     games, the gate's searches and the bookkeeping; then one self-play
+     move and one gate move profiled;
+then the main-path summary, one JSON line of all ten kernels, the card line,
+and the device JSON.
 """
 
 from __future__ import annotations
@@ -52,6 +66,8 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 REPLACES = "alphazero_tpu/search/pallas_fused.py:805"        # _chunk_kernel
 REPLACES_MOVE = "alphazero_tpu/search/pallas_fused.py:661"   # _move_kernel
+REPLACES_SIM = {"az_sim_step": "alphazero_tpu/search/pallas_mcts.py:555",
+                "az_sim_flush": "alphazero_tpu/search/pallas_mcts.py:685"}
 
 
 def fail(msg):
@@ -98,7 +114,9 @@ def nbytes(*ts):
 
 # kernel function names in csrc/ → the C entry that launches each (a name
 # that holds another comes first)
-KERNEL_FUNCS = {"move_root_init_kernel": "az_move_root_init",
+KERNEL_FUNCS = {"sim_step_kernel": "az_sim_step",
+                "sim_flush_kernel": "az_sim_flush",
+                "move_root_init_kernel": "az_move_root_init",
                 "root_counts_kernel": "az_root_counts",
                 "descend_leaf_kernel": "az_descend_leaf",
                 "move_tail_kernel": "az_move_tail",
@@ -199,6 +217,410 @@ def print_profile(tag, prof, wall_ms):
     return dev_ms
 
 
+def fresh_ms(fn, states):
+    """Mean ms per call of ``fn`` on each of ``states`` after the first
+    (a warm-up), by CUDA events: every call starts from its own state."""
+    fn(states[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in states[1:]:
+        fn(s)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(states) - 1)
+
+
+def max_diff(a, b):
+    """Largest ``|a - b|`` over the elements that differ (0 when equal)."""
+    if a.numel() == 0:
+        return 0.0
+    d = (a.double() - b.double()).abs()
+    return float(torch.where(a == b, torch.zeros_like(d), d).max())
+
+
+def compare(name, kern, plain, state, outputs, reps=50, preps=3,
+            fresh=False):
+    """Run kernel and plain version on clones of ``state`` (a dict of
+    tensors and trees) and compare ``outputs`` bit for bit.  With
+    ``fresh`` every timed call starts from its own clone of ``state`` (for
+    a call that may not be repeated on its own output).  Returns the
+    per-call ms of kernel and plain version and the largest difference,
+    under the kernels line's keys."""
+    def clone(s):
+        return {k: (v.clone() if hasattr(v, "clone") else v)
+                for k, v in s.items()}
+    sk, sp_ = clone(state), clone(state)
+    rk, rp = kern(sk), plain(sp_)
+    torch.cuda.synchronize()
+    diff, err = [], 0.0
+    for get in outputs:
+        a, b = get(sk, rk), get(sp_, rp)
+        err = max(err, max_diff(a, b))
+        if not torch.equal(a, b):
+            diff.append(get.__doc__ or "?")
+    if fresh:
+        tk, tp = [], []
+        for _ in range(3):
+            tk.append(fresh_ms(kern, [clone(state) for _ in range(reps + 1)]))
+            tp.append(fresh_ms(plain, [clone(state)
+                                       for _ in range(preps + 1)]))
+        ms_k, ms_p = statistics.median(tk), statistics.median(tp)
+    else:
+        ms_k, ms_p = alternate(lambda: kern(sk), lambda: plain(sp_),
+                               k_reps=reps, p_reps=preps)
+    log(f"[kernel] {name}: {'bitwise equal' if not diff else diff}; "
+        f"per call: kernel wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    if diff:
+        fail(f"{name} differs from its plain version in {diff}")
+    return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err)
+
+
+def out(fn, doc):
+    fn.__doc__ = doc
+    return fn
+
+
+def tree_clone(s):
+    s = dict(s)
+    s["tree"] = s["tree"].clone()
+    return s
+
+
+def counted_phases(obj, phases, kernels, split):
+    """Wrap the methods ``phases`` of ``obj`` so that each stores the
+    launches of ``kernels`` it made in ``split[phase]``."""
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    def wrap(phase, fn):
+        def run(*a, **kw):
+            before = counts()
+            r = fn(*a, **kw)
+            split[phase] = {n: c - before[n] for n, c in counts().items()}
+            return r
+        return run
+
+    for phase in phases:
+        setattr(obj, phase, wrap(phase, getattr(obj, phase)))
+    return counts
+
+
+def sim_phase(gen, dev):
+    """Phase 8: the per-simulation engine on the card against its plain
+    version, bit for bit, at every batch the main path gives it;
+    az_sim_step / az_sim_flush on a real-weights
+    snapshot with times and bounds; one vanilla search."""
+    from alphazero_tpu_torch.config import MCTSConfig, preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import expand_root, run_mcts
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    from alphazero_tpu_torch.search.tree import init_tree
+
+    summary = {}
+    search_err = 0.0
+    c4 = preset("connect4-resnet")
+    # self-play's batch and the gate's (each agent's half), then tictactoe
+    for pname, B in (("connect4-resnet", c4.train.selfplay_batch),
+                     ("connect4-resnet", c4.train.gate_games // 2),
+                     ("tictactoe", preset("tictactoe").train.selfplay_batch)):
+        pc = preset(pname)
+        env, mcfg = make_env(pc.env), pc.mcts
+        S, A = mcfg.num_simulations, env.action_dim
+        st = random_positions(env, B, gen, dev)
+        if env.name == "connect4":
+            st = with_drawn_game(st, env)
+        roots = (st.board, st.current_player, st.move_count, st.done)
+        won = st.done & (st.winner >= 0)
+        drawn = st.done & (st.winner < 0)
+        noise = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen,
+                                      dev)[0].T.contiguous()
+        stub = exact_stub_evaluator(env)
+        ev = lambda o, stub=stub: stub(o.reshape(o.shape[0], -1))  # noqa: E731
+        t0 = time.perf_counter()
+        got = sim.run_mcts_sim(env, ev, *roots, mcfg, noise=noise,
+                               device=dev)
+        torch.cuda.synchronize()
+        t_kern = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = sim.sim_search_reference(env, ev, *roots, mcfg, noise=noise)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        fields = ("visit_counts", "policy", "root_q")
+        bad = [k for k in fields
+               if not torch.equal(getattr(got, k), getattr(want, k))]
+        search_err = max([search_err] + [
+            max_diff(getattr(got, k), getattr(want, k)) for k in fields])
+        sums = got.visit_counts.sum(-1)
+        log(f"[sim search] {env.name} B={B} S={S} Dirichlet, exact stub, "
+            f"{int((~st.done).sum())} live / {int(won.sum())} won / "
+            f"{int(drawn.sum())} drawn roots: mismatched {bad or 'none'}; "
+            f"kernel search {t_kern:.2f} s, plain search {t_plain:.2f} s")
+        if bad:
+            fail(f"per-simulation kernels differ from the plain search in "
+                 f"{bad} ({env.name})")
+        checks = {
+            "live roots count S-1 visits": bool((sums[~st.done]
+                                                 == S - 1).all()),
+            "finished roots count none": bool((sums[st.done] == 0).all()),
+            "won roots: root Q (S-1)/S": bool(won.any()) and bool(
+                (got.root_q[won] == torch.tensor((S - 1) / S,
+                                                 device=dev)).all()),
+            "drawn roots: root Q 0": bool(drawn.any()) and bool(
+                (got.root_q[drawn] == 0).all()),
+        }
+        for name, ok in checks.items():
+            log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+        if not all(checks.values()):
+            fail(f"per-simulation search checks failed ({env.name})")
+
+    # az_sim_step / az_sim_flush on a snapshot of a real-weights
+    # connect4-resnet search at slot S/2
+    pc = preset("connect4-resnet")
+    env, mcfg = make_env(pc.env), pc.mcts
+    B, S, A = pc.train.selfplay_batch, mcfg.num_simulations, env.action_dim
+    RC, F = env.rows * env.cols, env.feature_dim
+    model = build_model(pc.model, env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    ev = make_eval_fn(model, params)
+    st = random_positions(env, B, gen, dev)
+    noise = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen,
+                                  dev)[0].T.contiguous()
+    tree = init_tree(env, st.board, st.current_player, st.move_count, S)
+    expand_root(env, mcfg, tree, ev, st.done,
+                torch.ones(B, dtype=torch.bool, device=dev), noise, None)
+    ss = sim.SimState.create(env, B, S, dev)
+    p = torch.zeros((B, A), device=dev)
+    v = torch.zeros((B,), device=dev)
+    half = S // 2
+
+    def forward(o):
+        pr, va = ev(o)
+        return pr.float().contiguous(), va.float().contiguous()
+
+    for slot in range(1, half):
+        sim.sim_step(env, mcfg, tree, ss, p, v, slot - 1, slot)
+        p, v = forward(ss.obs)
+    tree_f = ("stats", "prior", "children")
+    st_f = ("path", "apath", "meta", "valid", "obs")
+    outs = ([out(lambda s, r, f=f: getattr(s["tree"], f), f) for f in tree_f]
+            + [out(lambda s, r, f=f: getattr(s["st"], f), f) for f in st_f])
+    state = {"tree": tree, "st": ss, "p": p, "v": v}
+    ms = compare("az_sim_step",
+                 lambda s: sim.sim_step(env, mcfg, s["tree"], s["st"], s["p"],
+                                        s["v"], half - 1, half),
+                 lambda s: sim.sim_step_reference(
+                     env, mcfg, s["tree"], s["st"], s["p"], s["v"],
+                     half - 1, half),
+                 state, outs, reps=30, preps=2, fresh=True)
+    prev_plies = int((ss.meta[:, sim.M_DEPTH].long() + 1).sum())
+    sim.sim_step(env, mcfg, tree, ss, p, v, half - 1, half)
+    depth = ss.meta[:, sim.M_DEPTH].long()
+    steps = int(depth.sum())
+    dcap = ss.path.shape[1]
+    nodes = ss.path.long().clamp(max=S)
+    on_path = torch.arange(dcap, device=dev)[None] < depth[:, None]
+    kids = (tree.children[torch.arange(B, device=dev)[:, None], nodes] >= 0
+            ).sum(-1)
+    n_kids = int(kids[on_path].sum())
+    flush_bytes = (B * A * 4 + B * 4 + B * 32 + B * A + prev_plies * 4
+                   + prev_plies * 24 + B * A * 4 + B * 4)
+    step_bytes = (flush_bytes + nbytes(st.board, st.current_player,
+                                       st.move_count)
+                  + steps * A * 8 + n_kids * 12 + 2 * B * dcap * 4 + B * 32
+                  + B * A + B * F * RC * 4)
+    b_ms, b_by = bound(step_bytes, f32_ops=steps * A * 8.0 + 2 * prev_plies)
+    summary["az_sim_step"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  sim step at slot {half}: {steps} walk steps over {B} games "
+        f"(deepest {int(depth.max())}), {n_kids} child reads, flush of "
+        f"{prev_plies} plies")
+    p, v = forward(ss.obs)
+    ms = compare("az_sim_flush",
+                 lambda s: sim.flush(env, s["tree"], s["st"], s["p"], s["v"],
+                                     half),
+                 lambda s: sim.flush_reference(s["tree"], s["st"], s["p"],
+                                               s["v"], half),
+                 {"tree": tree, "st": ss, "p": p, "v": v},
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in tree_f], reps=30, preps=2, fresh=True)
+    plies = int((depth + 1).sum())
+    b_ms, b_by = bound(B * A * 4 + B * 4 + B * 32 + B * A + plies * 4
+                       + plies * 24 + B * A * 4 + B * 4,
+                       f32_ops=2.0 * plies)
+    summary["az_sim_flush"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    # the searches above held both kernels against the plain search too
+    for name in ("az_sim_step", "az_sim_flush"):
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                           search_err)
+
+    # vanilla (rollout) search on the card
+    env = make_env("tictactoe")
+    Bv, Sv = 8, 16
+    st = env.init(Bv, dev)
+    res = run_mcts(env, None, st.board, st.current_player, st.move_count,
+                   st.done, MCTSConfig(num_simulations=Sv, use_dirichlet=False),
+                   generator=gen, device=dev)
+    ok = (res.visit_counts.device.type == "cuda"
+          and bool((res.visit_counts.sum(-1) == Sv - 1).all()))
+    log(f"[vanilla search] tictactoe B={Bv} S={Sv} on {res.visit_counts.device}: "
+        f"counts sum to S-1 -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("vanilla search on the card")
+    return summary
+
+
+def resnet_iterate_phase(gen, dev):
+    """Phase 9: ``Trainer(preset("connect4-resnet")).iterate(
+    vanilla_eval=False)`` with launches per phase, then one self-play move
+    and one gate move profiled.  Returns (launch split, iterate result,
+    device ms per launch of the move and of the gate move, walls)."""
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import run_mcts
+    from alphazero_tpu_torch.training import Trainer
+    from alphazero_tpu_torch.training.selfplay import selfplay_step
+
+    cfg = preset("connect4-resnet")
+    tr = Trainer(cfg, device="cuda")
+    env, mcfg = tr.env, cfg.mcts
+    S, B = mcfg.num_simulations, cfg.train.selfplay_batch
+    log(f"[resnet iterate] model {type(tr.model).__name__} channels "
+        f"{tr.model.channels} blocks {tr.model.blocks}, {S} sims, B={B}, "
+        f"{cfg.train.gate_games} gate games")
+    init = {k: v.clone() for k, v in tr.params_best.items()}
+    kernels = fused.KERNELS + sim.KERNELS
+    split, trace = {}, []
+    counts = counted_phases(tr, ("collect", "train_epoch", "gate"), kernels,
+                            split)
+
+    def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
+                        **kw):
+        res = run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_, **kw)
+        trace.append((dones, res.visit_counts))
+        return res
+
+    arena.run_mcts = traced_run_mcts
+    for k in kernels:
+        k.launches = 0
+    try:
+        it = tr.iterate(vanilla_eval=False)
+    finally:
+        arena.run_mcts = run_mcts
+    total = counts()
+    M = cfg.train.selfplay_chunk_steps or 32
+    moves = len(it["chunk_seconds"]) * M
+    searches = 2 * env.max_moves
+    expect = {
+        "collect": {"az_sim_step": moves * (S - 1), "az_sim_flush": moves},
+        "train_epoch": {},
+        "gate": {"az_sim_step": searches * (S - 1),
+                 "az_sim_flush": searches}}
+    log(f"[resnet iterate] launches {total}; measured per phase {split}")
+    for phase, want in expect.items():
+        got = split.get(phase)
+        full = {k.name: want.get(k.name, 0) for k in kernels}
+        if got != full:
+            fail(f"{phase} launches {got} != expected {full} (the dense "
+                 "kernels must show 0)")
+    if any(sum(split[ph][n] for ph in split) != total[n] for n in total):
+        fail("the per-phase launch counts do not add up to the total")
+    log(f"[resnet iterate] collect {it['collect_seconds']:.3f} s "
+        f"({len(it['chunk_seconds'])} chunks of {M} moves, {it['games']} "
+        f"games, {it['env_steps']} env-steps, {it['env_steps_per_s']:.1f} "
+        f"env-steps/s); train {it['train_seconds']:.3f} s ({it['steps']} "
+        f"steps of batch {cfg.train.batch_size}, "
+        f"{it['steps'] / it['train_seconds']:.1f} steps/s, loss "
+        f"{it['loss']:.4f}); gate {it['gate_seconds']:.3f} s "
+        f"({env.max_moves} moves, score {tr.last_gate_score}, rate "
+        f"{it['gate_rate']}, accepted {it['accepted']})")
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    if it["accepted"]:
+        kept = (tr.version == 1 and same(tr.params_best, tr.params_new)
+                and not same(tr.params_best, init))
+    else:
+        kept = (tr.version == 0 and same(tr.params_new, init)
+                and same(tr.params_best, init))
+    size = int(tr.buffer.size)
+    lens = tr.buffer.length[:size].long()
+    rows = torch.arange(env.max_moves, device=dev)[None] < lens[:, None]
+    pol = tr.buffer.policy[:size]
+    obs_b = tr.buffer.obs[:size].long()
+    stones = obs_b[:, :, :2].sum(dim=(2, 3, 4))
+    counts_b = pol * (S - 1)
+    checks = {
+        "buffer holds the finished games": size == min(
+            it["games"], tr.buffer.capacity) and size > 0,
+        "game lengths 7..42": bool(((lens >= 7) & (lens <= 42)).all()),
+        "policies sum to 1": bool(((pol.sum(-1) - 1).abs()
+                                   <= 1e-6)[rows].all()),
+        "root counts sum to S-1": bool(
+            ((counts_b - counts_b.round()).abs() <= 1e-3)[rows].all()
+            and (counts_b.round().sum(-1) == S - 1)[rows].all()),
+        "one stone per move": bool(
+            (stones == torch.arange(env.max_moves, device=dev)[None])[rows]
+            .all()),
+        "gate score sums to the game count": sum(
+            tr.last_gate_score[:2]) == cfg.train.gate_games,
+        "every gate search recorded": len(trace) == searches,
+        "gate: live roots count S-1, finished none": all(
+            bool((c.sum(-1)[~d] == S - 1).all())
+            and bool((c.sum(-1)[d] == 0).all()) for d, c in trace),
+        "train steps = buffer rows // batch": it["steps"] == max(
+            it["buffer_size"] // cfg.train.batch_size, 1),
+        "finite losses": all(math.isfinite(it[k]) for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+        "promote/revert bookkeeping": kept,
+    }
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("connect4-resnet iteration checks failed")
+
+    # one self-play move (B games) and one gate move (2 x B/2), profiled
+    ev = make_eval_fn(tr.model, tr.params_best)
+
+    def sp_move():
+        tr.sp, tr.buffer = selfplay_step(env, ev, mcfg, tr.sp, tr.buffer)
+
+    sp_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp_move()
+    torch.cuda.synchronize()
+    sp_wall = (time.perf_counter() - t0) * 1e3
+    sp_ms = print_profile(f"one connect4-resnet self-play move (B={B})",
+                          device_profile(sp_move), sp_wall)
+    Bg = cfg.train.gate_games // 2
+    st = random_positions(env, cfg.train.gate_games, gen, dev)
+    agents = (make_eval_fn(tr.model, tr.params_best),
+              make_eval_fn(tr.model, tr.params_new))
+
+    def gate_move():
+        for fn, sl in zip(agents, (slice(0, Bg), slice(Bg, None))):
+            run_mcts(env, fn, st.board[sl], st.current_player[sl],
+                     st.move_count[sl], st.done[sl], mcfg, generator=gen,
+                     device=dev)
+
+    gate_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate_move()
+    torch.cuda.synchronize()
+    gate_wall = (time.perf_counter() - t0) * 1e3
+    gate_ms = print_profile(f"one connect4-resnet gate move (2 x B={Bg})",
+                            device_profile(gate_move), gate_wall)
+    return split, total, it, sp_ms, gate_ms, sp_wall, gate_wall
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -211,8 +633,8 @@ def main():
     from alphazero_tpu_torch.models import (build_model, init_params,
                                             make_eval_fn)
     from alphazero_tpu_torch.ops import build
-    from alphazero_tpu_torch.search import fused
-    from alphazero_tpu_torch.search.mcts import run_mcts
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import root_prior, run_mcts
     from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.training import Trainer
 
@@ -392,32 +814,6 @@ def main():
     noise_m = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen, dev)[0]
     u = torch.rand((B,), generator=gen, device=dev)
 
-    def compare(name, kern, plain, state, outputs, reps=50, preps=3):
-        """Run kernel and plain version on clones of ``state`` (a dict of
-        tensors and trees) and compare ``outputs`` bit for bit."""
-        def clone(s):
-            return {k: (v.clone() if hasattr(v, "clone") else v)
-                    for k, v in s.items()}
-        sk, sp_ = clone(state), clone(state)
-        rk, rp = kern(sk), plain(sp_)
-        torch.cuda.synchronize()
-        diff = []
-        for get in outputs:
-            a, b = get(sk, rk), get(sp_, rp)
-            if not torch.equal(a, b):
-                diff.append(get.__doc__ or "?")
-        ms_k, ms_p = alternate(lambda: kern(sk), lambda: plain(sp_),
-                               k_reps=reps, p_reps=preps)
-        log(f"[kernel] {name}: {'bitwise equal' if not diff else diff}; "
-            f"per call: kernel wrapper {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-        if diff:
-            fail(f"{name} differs from its plain version in {diff}")
-        return ms_k, ms_p
-
-    def out(fn, doc):
-        fn.__doc__ = doc
-        return fn
-
     # root observation and tree init at the start of the move
     base = {"board": board, "player": player, "rec": rec_obs}
     ms = compare("az_root_obs",
@@ -427,18 +823,13 @@ def main():
                  base, [out(lambda s, r: r, "obs"),
                         out(lambda s, r: s["rec"], "rec_obs")])
     b_ms, b_by = bound(nbytes(board, player) + B * F * RC * 5)
-    summary["az_root_obs"] = dict(ms=ms[0], plain_ms=ms[1], bound_ms=b_ms,
+    summary["az_root_obs"] = dict(**ms, bound_ms=b_ms,
                                   bound_by=b_by)
     obs0 = fused.root_obs(env, board, player, rec_obs)
     probs0, value0 = fused.dense_forward(obs0, packed)
     tree_fields = ("visit", "val", "child", "prior")
     state = {"tree": tree, "probs": probs0, "value": value0, "noise": noise_m,
              "board": board}
-
-    def tree_clone(s):
-        s = dict(s)
-        s["tree"] = s["tree"].clone()
-        return s
 
     ms = compare("az_root_init",
                  lambda s: fused.root_init(env, mcfg, s["tree"], s["probs"],
@@ -451,7 +842,7 @@ def main():
                   for f in tree_fields])
     b_ms, b_by = bound(nbytes(probs0, value0, noise_m, board)
                        + 2 * B * N * 4 + B * A * 8, f32_ops=4.0 * B * A)
-    summary["az_root_init"] = dict(ms=ms[0], plain_ms=ms[1], bound_ms=b_ms,
+    summary["az_root_init"] = dict(**ms, bound_ms=b_ms,
                                    bound_by=b_by)
     fused.root_init(env, mcfg, tree, probs0, value0, noise_m, board)
     half = S // 2
@@ -482,7 +873,7 @@ def main():
     d_bytes = (steps * A * 8 + n_kids * 8 + nbytes(board, player, mc)
                + 2 * B * dcap * 4 + B * 28 + B * A + B * F * RC * 4)
     b_ms, b_by = bound(d_bytes, f32_ops=steps * A * 8.0)
-    summary["az_descend_leaf"] = dict(ms=ms[0], plain_ms=ms[1], bound_ms=b_ms,
+    summary["az_descend_leaf"] = dict(**ms, bound_ms=b_ms,
                                       bound_by=b_by)
     log(f"  descend at slot {half}: {steps} walk steps over {B} games "
         f"(deepest {int(depth.max())}), {n_kids} child reads")
@@ -497,7 +888,7 @@ def main():
     a_bytes = (nbytes(p, v, tree.pend, tree.valid) + plies * (4 + 16)
                + B * A * 8 + B * 4)
     b_ms, b_by = bound(a_bytes, f32_ops=2.0 * plies)
-    summary["az_apply"] = dict(ms=ms[0], plain_ms=ms[1], bound_ms=b_ms,
+    summary["az_apply"] = dict(**ms, bound_ms=b_ms,
                                bound_by=b_by)
     fused.apply(tree, half, p, v)
     for slot in range(half + 1, S):
@@ -530,7 +921,7 @@ def main():
     t_bytes = (B * A * 4 * 2 + B * 8 * 2 + nbytes(u) + 2 * nbytes(board)
                + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1))
     b_ms, b_by = bound(t_bytes, f32_ops=4.0 * B * A)
-    summary["az_move_tail"] = dict(ms=ms[0], plain_ms=ms[1], bound_ms=b_ms,
+    summary["az_move_tail"] = dict(**ms, bound_ms=b_ms,
                                    bound_by=b_by)
     torch.cuda.synchronize()
 
@@ -580,7 +971,7 @@ def main():
     # gate's half batch, the trainer's weights, the real forward
     root_fn = make_eval_fn(tr.model, tr.params_best)
     use6 = torch.ones(Bg, dtype=torch.bool, device=dev)
-    rp, v0, live6 = fused.move_root(env, mcfg, root_fn, *margs, use6, noise6)
+    rp, v0, live6 = root_prior(env, mcfg, root_fn, *margs, use6, noise6)
     tree6 = fused.Tree(env, Bg, S, dev)
     ms = compare("az_move_root_init",
                  lambda s: fused.move_root_init(s["tree"], s["rp"], s["v"],
@@ -593,8 +984,7 @@ def main():
                   for f in tree_fields])
     b_ms, b_by = bound(nbytes(rp, v0, live6) + 2 * Bg * N * 4 + Bg * A * 8,
                        f32_ops=4.0 * Bg * A)
-    summary["az_move_root_init"] = dict(ms=ms[0], plain_ms=ms[1],
-                                        bound_ms=b_ms, bound_by=b_by)
+    summary["az_move_root_init"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
     # the search with the real forward kernel, held against its plain
     # version at the gate's shape on every simulation
     fwd_err = []
@@ -631,26 +1021,15 @@ def main():
     n_kids = int((tree6.child[:, 0] >= 0).sum())
     b_ms, b_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
                        + Bg * 4, f32_ops=float(Bg * A + Bg))
-    summary["az_root_counts"] = dict(ms=ms[0], plain_ms=ms[1],
-                                     bound_ms=b_ms, bound_by=b_by)
+    summary["az_root_counts"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
 
     # ---- 7. the main path's outer iteration
     tr7 = Trainer(cfg, device="cuda")
     init7 = {k: v.clone() for k, v in tr7.params_best.items()}
     trace, split = [], {}
 
-    def launch_counts():
-        return {k.name: k.launches for k in fused.KERNELS}
-
-    def counted(phase, fn):
-        """``fn`` that also stores the launches it made under ``phase``."""
-        def run(*a, **kw):
-            before = launch_counts()
-            r = fn(*a, **kw)
-            split[phase] = {n: c - before[n]
-                            for n, c in launch_counts().items()}
-            return r
-        return run
+    launch_counts = counted_phases(tr7, ("collect", "train_epoch", "gate"),
+                                   fused.KERNELS, split)
 
     def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
                         **kw):
@@ -658,8 +1037,6 @@ def main():
         trace.append((dones, res.visit_counts))
         return res
 
-    for phase in ("collect", "train_epoch", "gate"):
-        setattr(tr7, phase, counted(phase, getattr(tr7, phase)))
     arena.run_mcts = traced_run_mcts
     for k in fused.KERNELS:
         k.launches = 0
@@ -753,6 +1130,13 @@ def main():
     gate_ms = print_profile(f"one gate move (2 x B={Bg})",
                             device_profile(gate_move), wall_ms)
 
+    # ---- 8. the per-simulation engine (kernels 3 and 4)
+    summary.update(sim_phase(gen, dev))
+
+    # ---- 9. the connect4-resnet outer iteration
+    split9, total9, it9, sp_ms9, gate_ms9, sp_wall9, gate_wall9 = \
+        resnet_iterate_phase(gen, dev)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -764,11 +1148,25 @@ def main():
             "launches": launches7[k.name],
             "launches_collect": split["collect"][k.name],
             "launches_gate": split["gate"][k.name],
-            "max_abs_err": s.get("max_abs_err", 0.0),
+            "max_abs_err": s["max_abs_err"],
             **({"max_abs_err_by_batch": s["max_abs_err_by_batch"]}
                if "max_abs_err_by_batch" in s else {}),
-            "ms": (gate_ms if new else dev_ms).get(k.name, s["ms"]),
+            "ms": (gate_ms if new else dev_ms).get(k.name),
             "gate_ms": gate_ms.get(k.name), "call_ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None})
+    for k in sim.KERNELS:
+        s = summary[k.name]
+        kernels.append({
+            "name": k.name, "route": "cuda",
+            "source": "alphazero_tpu_torch/csrc/sim.cu",
+            "replaces": REPLACES_SIM[k.name],
+            "launches": total9[k.name],
+            "launches_collect": split9["collect"][k.name],
+            "launches_gate": split9["gate"][k.name],
+            "max_abs_err": s["max_abs_err"],
+            "ms": sp_ms9.get(k.name),
+            "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None})
     log(json.dumps({"main_path": {
@@ -780,6 +1178,14 @@ def main():
                                "gate_rate", "accepted")},
         "train_steps_per_s": steps_rate, "gate_score": tr7.last_gate_score,
         "gate_move_ms": wall_ms}}))
+    log(json.dumps({"resnet_path": {
+        "preset": "connect4-resnet", "iterate": {
+            k: it9[k] for k in ("collect_seconds", "train_seconds",
+                                "gate_seconds", "steps", "games",
+                                "env_steps", "env_steps_per_s", "loss",
+                                "gate_rate", "accepted", "chunk_seconds")},
+        "launches_by_phase": split9, "selfplay_move_ms": sp_wall9,
+        "gate_move_ms": gate_wall9}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -218,3 +218,88 @@ def test_learner_step_on_card_close_to_cpu(dev):
         d = (pg[k] - pc[k]).abs()
         assert float(d.max()) <= 2 * cfg.learning_rate, k
         assert float((d <= 1e-6).float().mean()) >= 0.99, k
+
+
+def _sim_positions(env, B, seed, dev):
+    """B roots of random legal play for any game, each stopped at its own
+    length: live, won and (board full) drawn games mixed."""
+    g = torch.Generator().manual_seed(seed)
+    st = env.init(B)
+    T = min(env.max_moves, 40)
+    target = torch.randint(0, T, (B,), generator=g)
+    target[-2:] = T                           # some long games
+    for t in range(T):
+        mask = env.valid_mask(st) & (t < target)[:, None]
+        act = torch.where(mask, torch.rand(mask.shape, generator=g), -1.0
+                          ).argmax(-1).to(torch.int32)
+        nxt = env.step(st, act)
+        live = mask.any(-1)
+        st = type(st)(*(torch.where(
+            live.reshape((B,) + (1,) * (getattr(st, f).dim() - 1)),
+            getattr(nxt, f), getattr(st, f)) for f in vars(st)))
+    return (st.board.to(dev), st.current_player.to(dev),
+            st.move_count.to(dev), st.done.to(dev))
+
+
+@pytest.mark.parametrize("name,dirichlet,formula", [
+    ("connect4", True, "reference"), ("tictactoe", False, "alphazero"),
+    ("gomoku9", True, "reference")])
+def test_sim_search_kernels_bitwise_vs_plain(dev, name, dirichlet, formula):
+    """The per-simulation engine: az_sim_step × (S-1) and az_sim_flush
+    against their plain versions, with finished roots present."""
+    from alphazero_tpu_torch.search import sim
+    env = make_env(name)
+    S, B = 40, 64
+    cfg = MCTSConfig(num_simulations=S, dirichlet_alpha=0.3,
+                     use_dirichlet=dirichlet, formula=formula, c_puct=1.7)
+    args = _sim_positions(env, B, 8, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    noise = fused.dirichlet_noise(1, env.action_dim, B, 0.3, g, dev)[0].T
+    stub = exact_stub_evaluator(env)
+    ev = lambda obs: stub(obs.reshape(obs.shape[0], -1))  # noqa: E731
+    n0 = (sim.K_SIM_STEP.launches, sim.K_SIM_FLUSH.launches)
+    got = sim.run_mcts_sim(env, ev, *args, cfg, noise=noise, device=dev)
+    assert (sim.K_SIM_STEP.launches - n0[0],
+            sim.K_SIM_FLUSH.launches - n0[1]) == (S - 1, 1)
+    want = sim.sim_search_reference(env, ev, *args, cfg, noise=noise)
+    for f in ("visit_counts", "policy", "root_q"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    sums = got.visit_counts.sum(-1)
+    dones = args[3]
+    assert (sums[~dones] == S - 1).all() and (sums[dones] == 0).all()
+
+
+def test_sim_step_and_flush_one_launch_vs_plain(dev):
+    """One az_sim_step (flush of slot 9, descent of slot 10) and one
+    az_sim_flush on a mid-search snapshot: every output equal."""
+    from alphazero_tpu_torch.search import sim
+    from alphazero_tpu_torch.search.mcts import expand_root
+    from alphazero_tpu_torch.search.tree import init_tree
+    env = make_env("connect4")
+    B, S = 96, 24
+    cfg = MCTSConfig(num_simulations=S, use_dirichlet=False)
+    board, player, mc, dones = _sim_positions(env, B, 3, dev)
+    stub = exact_stub_evaluator(env)
+    ev = lambda obs: stub(obs.reshape(obs.shape[0], -1))  # noqa: E731
+    tree = init_tree(env, board, player, mc, S)
+    expand_root(env, cfg, tree, ev, dones, None, None, None)
+    st = sim.SimState.create(env, B, S, dev)
+    p = torch.zeros((B, env.action_dim), device=dev)
+    v = torch.zeros((B,), device=dev)
+    for slot in range(1, 10):
+        sim.sim_step(env, cfg, tree, st, p, v, slot - 1, slot)
+        p, v = ev(st.obs)
+    snap = (init_tree(env, board, player, mc, S), st.clone())
+    for f in ("stats", "prior", "children"):
+        getattr(snap[0], f).copy_(getattr(tree, f))
+    sim.sim_step(env, cfg, tree, st, p, v, 9, 10)
+    sim.sim_step_reference(env, cfg, snap[0], snap[1], p, v, 9, 10)
+    for f in ("stats", "prior", "children"):
+        assert torch.equal(getattr(tree, f), getattr(snap[0], f)), f
+    for f in ("path", "apath", "meta", "valid", "obs"):
+        assert torch.equal(getattr(st, f), getattr(snap[1], f)), f
+    p, v = ev(st.obs)
+    sim.flush(env, tree, st, p, v, 10)
+    sim.flush_reference(snap[0], snap[1], p, v, 10)
+    for f in ("stats", "prior", "children"):
+        assert torch.equal(getattr(tree, f), getattr(snap[0], f)), f

@@ -51,7 +51,9 @@ def test_sources_never_name_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["trainer", "chunk", "buffer", "selfplay",
-                                   "move_search", "compare", "symmetries"])
+                                   "move_search", "compare", "symmetries",
+                                   "resnet_trainer", "sim_search",
+                                   "xla_search", "vanilla_search"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
@@ -61,9 +63,13 @@ def test_entry_points_raise_without_cuda(entry):
     from alphazero_tpu_torch.eval import Agent, compare
     from alphazero_tpu_torch.search.fused import (run_mcts_fused,
                                                   run_selfplay_chunk)
+    from alphazero_tpu_torch.search.mcts import run_mcts, run_mcts_xla
+    from alphazero_tpu_torch.search.sim import run_mcts_sim
     from alphazero_tpu_torch.training import Trainer, init_selfplay
     env = make_env("connect4")
     z = torch.zeros(2, dtype=torch.int32)
+    roots = (torch.zeros((2, 2, 6, 7), dtype=torch.int8), z, z,
+             torch.zeros(2, dtype=torch.bool))
     calls = {
         "trainer": lambda: Trainer(tcfg.preset("connect4")),
         "chunk": lambda: run_selfplay_chunk(
@@ -78,6 +84,13 @@ def test_entry_points_raise_without_cuda(entry):
             tcfg.MCTSConfig(num_simulations=4)),
         "compare": lambda: compare(env, Agent(), Agent(), 2),
         "symmetries": lambda: Symmetries(env),
+        "resnet_trainer": lambda: Trainer(tcfg.preset("connect4-resnet")),
+        "sim_search": lambda: run_mcts_sim(env, lambda obs: None, *roots,
+                                           tcfg.MCTSConfig(num_simulations=4)),
+        "xla_search": lambda: run_mcts_xla(env, lambda obs: None, *roots,
+                                           tcfg.MCTSConfig(num_simulations=4)),
+        "vanilla_search": lambda: run_mcts(env, None, *roots,
+                                           tcfg.MCTSConfig(num_simulations=4)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

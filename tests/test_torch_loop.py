@@ -2,8 +2,8 @@
 (tests/test_arena_loop.py): acceptance promotes the contender and bumps
 ``version``; rejection reverts ``params_new`` to the best parameters bit
 for bit and counts the rejection; collection doubles after
-``reject_double_after`` rejections; a due vanilla sanity match raises
-until rollout search is ported."""
+``reject_double_after`` rejections; a due vanilla sanity match plays
+vanilla (rollout) search and reports the model's rate."""
 
 import numpy as np
 import pytest
@@ -72,8 +72,12 @@ def test_rejections_double_collection():
 
 
 def test_disabled_gate_accepts_and_due_vanilla_match_raises():
+    """The due vanilla match no longer raises: it runs after the promotion
+    and its rate is in the iteration's result."""
     tr = Trainer(_cfg(gate_enabled=False, vanilla_eval_every=1,
                       train_steps_per_iter=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="module"):
-        tr.iterate(vanilla_eval=True)
+    m = tr.iterate(vanilla_eval=True)
     assert tr.version == 1 and tr.gate() == 1.0
+    assert 0.0 <= m["vanilla_win_rate"] <= 1.0
+    assert sum(tr.last_vanilla_score[:2]) == 2
+    assert "vanilla_win_rate" not in tr.iterate(vanilla_eval=False)

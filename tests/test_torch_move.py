@@ -201,12 +201,20 @@ def test_move_search_real_weights_close_to_jax():
 
 
 def test_run_mcts_raises_for_unported_engines():
+    """Leaf batching (``leaf_batch > 1``) is the one engine not ported: a
+    network search with it raises, whatever the evaluator; vanilla search
+    ignores it, as the JAX package does."""
     tenv = make_tenv("connect4")
     z = torch.zeros(2, dtype=torch.int32)
     args = (torch.zeros((2, 2, 6, 7), dtype=torch.int8), z, z,
             torch.zeros(2, dtype=torch.bool))
-    cfg = tcfg.MCTSConfig(num_simulations=4)
-    with pytest.raises(NotImplementedError, match="module 3"):
-        run_mcts(tenv, None, *args, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="module 3"):
-        run_mcts(tenv, lambda obs: None, *args, cfg, device="cpu")
+    cfg = tcfg.MCTSConfig(num_simulations=4, leaf_batch=2)
+    stub = exact_stub_evaluator(tenv)
+    dense = make_teval_fn(build_tmodel(tcfg.ModelConfig(
+        family="dense", width=16, blocks=1), tenv), None)
+    for eval_fn in (lambda obs: stub(obs.reshape(obs.shape[0], -1)), dense):
+        with pytest.raises(NotImplementedError, match="module 3"):
+            run_mcts(tenv, eval_fn, *args, cfg, device="cpu")
+    res = run_mcts(tenv, None, *args, cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    assert res.visit_counts.sum(-1).tolist() == [3, 3]
