@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Optional
 
 
@@ -41,7 +42,8 @@ class MCTSConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Policy/value network.  Only ``family='dense'`` is ported so far."""
+    """Policy/value network: ``'dense'`` and ``'resnet'`` are ported, the
+    ViT (``'vit'``) is not."""
 
     family: str = "vit"  # 'vit' | 'resnet' | 'dense'
     embed_dim: int = 512
@@ -101,6 +103,36 @@ class Config:
 
 def to_json(cfg: Config) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=1)
+
+
+def from_json(s: str) -> Config:
+    """The ``Config`` of a :func:`to_json` text, written by either
+    package."""
+    d = json.loads(s)
+    return Config(
+        env=d["env"],
+        mcts=MCTSConfig(**d["mcts"]),
+        model=ModelConfig(**d["model"]),
+        replay=ReplayConfig(**d["replay"]),
+        train=TrainConfig(**d["train"]),
+        mesh=MeshConfig(**d.get("mesh", {})),
+    )
+
+
+def save_config(cfg: Config, workdir: str):
+    """Write ``workdir/config.json``, beside the run's checkpoints."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "config.json"), "w") as f:
+        f.write(to_json(cfg))
+
+
+def load_config(workdir: str) -> Optional[Config]:
+    """The config stored beside a run's checkpoints, or None."""
+    path = os.path.join(workdir, "config.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return from_json(f.read())
 
 
 def preset(name: str) -> Config:

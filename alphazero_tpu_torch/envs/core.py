@@ -181,6 +181,18 @@ class Env:
         out[b, parity[b, d], cells[b, d]] = 1
         return out.reshape(B, 2, self.rows, self.cols)
 
+    def render(self, state: EnvState, index: int = 0) -> str:
+        """Game ``index`` of ``state`` as text, as the JAX package draws it:
+        column digits on top, a row digit per row, ``O`` for player 0, ``X``
+        for player 1, ``.`` for an empty cell."""
+        board = state.board[index].cpu().numpy()
+        out = ["  " + " ".join(str(c % 10) for c in range(self.cols))]
+        for r in range(self.rows):
+            row = ["O" if board[0, r, c] else ("X" if board[1, r, c] else ".")
+                   for c in range(self.cols)]
+            out.append(f"{r % 10} " + " ".join(row))
+        return "\n".join(out)
+
     def symmetries(self):
         """``(cell_perms (S, RC), action_perms (S, A))`` of the game's
         symmetry group: ``new_plane = plane[cell_perms[s]]``."""

@@ -12,6 +12,8 @@ from alphazero_tpu_torch.config import ModelConfig
 from alphazero_tpu_torch.models import dense, resnet
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.models.resnet import ResNet
+from alphazero_tpu_torch.ops.resnet_tower import (make_fused_apply,
+                                                  supports_fused_resnet)
 
 
 def build_model(cfg: ModelConfig, env):
@@ -60,13 +62,28 @@ def params_from_flax(params_np) -> dict:
     return dense.params_from_flax(params_np)
 
 
-def make_eval_fn(model, params: dict):
+def make_eval_fn(model, params: dict, fused_resnet: bool = False):
     """Batched evaluator ``obs (B, F, R, C) → (softmax over ALL actions,
     value)``.  There is no legality mask: illegal actions' priors are never
     selected by the search.  For the dense family ``eval_fn.dense_spec =
     (model, params)`` lets ``search.mcts.run_mcts`` dispatch to the
     whole-move search; other families search on the per-simulation
-    engine."""
+    engine.
+
+    ``fused_resnet`` is the opt-in of the JAX package's ``AZ_FUSED_RESNET``:
+    a ``ResNet`` that ``ops.resnet_tower.supports_fused_resnet`` accepts is
+    evaluated by the fused tower kernel, its weights packed once here; every
+    other model keeps the eager forward."""
+    if (fused_resnet and isinstance(model, ResNet)
+            and supports_fused_resnet(model)):
+        apply = make_fused_apply(model, model.channels, model.blocks)
+        packed = apply.pack(params)
+
+        def fused_eval_fn(obs):
+            logits, value = apply.apply_packed(packed, obs)
+            return torch.softmax(logits, dim=-1), value
+
+        return fused_eval_fn
 
     @torch.no_grad()
     def eval_fn(obs):

@@ -3,6 +3,8 @@
 Counterpart of the JAX package's ``search/mcts.py``.  :func:`run_mcts`
 dispatches, as the JAX package does on its accelerator:
 
+* any network evaluator with ``leaf_batch > 1``, the dense tower's
+  included, to the leaf-batched rounds of :func:`run_mcts_xla`;
 * an evaluator with ``dense_spec`` (``models.make_eval_fn`` of the dense
   tower) to the whole-move search of ``search/fused.py`` while
   ``num_simulations + 2 < 512``;
@@ -19,8 +21,9 @@ frontier, rebuild the leaf board from the path, check the terminal, evaluate
 (network or rollout), expand into the simulation's slot and back up along
 the path.  :func:`descend`, :func:`leaf_finish` and :func:`expand_backup`
 are also the parts the per-simulation engine's plain versions are made of,
-so the two engines agree exactly.  Leaf batching (``leaf_batch > 1``,
-``_simulate_round``) is not ported.
+so the two engines agree exactly.  Leaf batching (:func:`simulate_round`,
+the JAX ``_simulate_round``) runs K virtual-loss descents, one evaluation of
+the K·B leaves and K backups per round.
 
 Semantics: PUCT ``Q + prior·√N_parent/(n+1)`` (times ``c_puct`` for the
 ``alphazero`` formula), UCB1 ``Q + √(2·ln N_parent/(n+1))`` for vanilla
@@ -185,17 +188,30 @@ def expand_backup(tree: Tree, slot: int, path, depth, parent, action, alloc,
     b = torch.arange(B, device=dev)[alloc]
     tree.children[b, parent[alloc], action[alloc]] = slot
     pos = torch.arange(dcap, device=dev)[None]
-    at_leaf = pos == depth[:, None]
-    full_path = torch.where(at_leaf, leaf[:, None], path.long())
+    full_path = torch.where(pos == depth[:, None], leaf[:, None],
+                            path.long())
+    add_backup(tree.stats, full_path, depth, leaf_value, do_expand)
+
+
+def _plies(full_path, depth):
+    """``(bi, di, nodes)``: game, ply and node of plies ``0..depth`` of
+    each game's ``full_path`` (distinct nodes within a path)."""
+    pos = torch.arange(full_path.shape[1], device=full_path.device)[None]
     bi, di = torch.nonzero(pos <= depth[:, None], as_tuple=True)
-    nodes = full_path[bi, di]
+    return bi, di, full_path[bi, di]
+
+
+def add_backup(stats, full_path, depth, leaf_value, do_expand):
+    """Add one backup to ``stats``: a visit per ply of ``full_path`` up to
+    the leaf at ``depth``, ``leaf_value`` negated per ply up from the leaf,
+    the expanded flag at the leaf where ``do_expand``."""
+    bi, di, nodes = _plies(full_path, depth)
     lv = leaf_value[bi]
-    dt = tree.stats.dtype
     even = (depth[bi] - di) % 2 == 0
-    tree.stats[bi, nodes, VISIT] += 1.0
-    tree.stats[bi, nodes, VALUE] += torch.where(even, lv, -lv)
-    tree.stats[bi, nodes, EXPANDED] += (at_leaf[bi, di]
-                                        & do_expand[bi]).to(dt)
+    stats[bi, nodes, VISIT] += 1.0
+    stats[bi, nodes, VALUE] += torch.where(even, lv, -lv)
+    stats[bi, nodes, EXPANDED] += ((di == depth[bi])
+                                   & do_expand[bi]).to(stats.dtype)
 
 
 def simulate_once(env, cfg: MCTSConfig, tree: Tree, slot: int, eval_fn,
@@ -221,6 +237,80 @@ def simulate_once(env, cfg: MCTSConfig, tree: Tree, slot: int, eval_fn,
     expand_backup(tree, slot, lf.path, lf.depth, lf.parent, lf.action,
                   lf.alloc, lf.leaf, do_expand,
                   prep_priors(probs, lf.valid, vanilla), leaf_value)
+
+
+def simulate_round(env, cfg: MCTSConfig, tree: Tree, slot_base: int,
+                   eval_fn, dcap: int):
+    """One leaf-batched round of ``K = cfg.leaf_batch`` simulations, the
+    JAX package's ``_simulate_round``: K descents on a copy of the tree
+    annotated with virtual losses (each descent's path gains a visit and
+    ``-virtual_loss`` at once, and its new edge points at its slot at once,
+    so a later descent revisits the pending leaf), one ``eval_fn`` call on
+    the K·B leaves, K expansions into slots ``slot_base + k``, then all K
+    backups, summed over the ranks in rank order and added to the tree's
+    stats together.  Ranks past the simulation budget park on the spare
+    slot N-1 with their effects masked."""
+    B, N = tree.stats.shape[:2]
+    A = env.action_dim
+    K = cfg.leaf_batch
+    S = cfg.num_simulations
+    dt = tree.stats.dtype
+    dev = tree.stats.device
+    pos = torch.arange(dcap, device=dev)[None]
+    ar = torch.arange(B, device=dev)
+    stats_v = tree.stats.clone()
+    children_v = tree.children.clone()
+    ranks = []
+    for k in range(K):
+        active = slot_base + k < S
+        slot = slot_base + k if active else N - 1
+        path, apath, depth, parent, action, child = descend(
+            stats_v, tree.prior, children_v, cfg, False, dcap)
+        root_case = parent < 0
+        alloc = (parent >= 0) & (child < 0)
+        leaf = torch.where(root_case, 0, torch.where(alloc, slot, child))
+        full_path = torch.where(pos == depth[:, None], leaf[:, None],
+                                path.long())
+        if active:
+            children_v[ar[alloc], parent[alloc], action[alloc]] = slot
+            bi, _, nodes = _plies(full_path, depth)
+            stats_v[bi, nodes, VISIT] += 1.0
+            stats_v[bi, nodes, VALUE] += -cfg.virtual_loss
+        ranks.append((apath, depth, root_case, alloc, slot, active,
+                      full_path))
+
+    # one forward for the K·B leaves, rank-major
+    apaths = torch.stack([r[0] for r in ranks])                 # (K, B, dcap)
+    depths = torch.stack([r[1] for r in ranks])                 # (K, B)
+    move_mask = (pos[None] < depths[..., None]).reshape(K * B, dcap)
+    board = env.apply_path(tree.root_board.repeat(K, 1, 1, 1),
+                           tree.root_player.repeat(K),
+                           apaths.reshape(K * B, dcap), move_mask)
+    player = (tree.root_player.long().repeat(K) + depths.reshape(-1)) % 2
+    mc = tree.root_move_count.long().repeat(K) + depths.reshape(-1)
+    won = env.won_batch(board[torch.arange(K * B, device=dev),
+                              1 - player]).reshape(K, B)
+    root_cases = torch.stack([r[2] for r in ranks])
+    root_unexp = tree.stats[:, 0, EXPANDED] == 0
+    terminal = (((won | (mc.reshape(K, B) >= env.max_moves)) & ~root_cases)
+                | (root_cases & root_unexp[None]))
+    probs, value = eval_fn(env.observation_from_board(board, player))
+    probs = probs.to(dt).reshape(K, B, A)
+    eval_value = (-value).to(dt).reshape(K, B)
+    valid = env.valid_mask_board(board, mc).reshape(K, B, A)
+    leaf_value = torch.where(terminal, won.to(dt), eval_value)
+
+    # K expansions, then the K backups summed in rank order
+    contrib = torch.zeros_like(tree.stats)
+    for k, (_, depth, _, alloc, slot, active, full_path) in enumerate(ranks):
+        do_expand = alloc & ~terminal[k] & active
+        tree.prior[:, slot] = torch.where(
+            do_expand[:, None], prep_priors(probs[k], valid[k]),
+            torch.full_like(probs[k], NEG))
+        if active:
+            add_backup(contrib, full_path, depth, leaf_value[k], do_expand)
+    tree.stats += contrib
+    tree.children = children_v
 
 
 def _gamma(alpha: float, n: int, generator, device) -> torch.Tensor:
@@ -332,12 +422,13 @@ def run_mcts_xla(env, eval_fn, boards, players, move_counts, dones,
                  cfg: MCTSConfig, *, generator=None, use_dirichlet=None,
                  noise=None, dtype=torch.float32,
                  device="cuda") -> SearchResult:
-    """The portable engine (the JAX package's ``run_mcts(backend="xla")``
-    with ``leaf_batch=1``): root expansion, then simulations 1..S-1 of
-    :func:`simulate_once`.  ``eval_fn=None`` is vanilla search with
-    rollouts drawn from ``generator``; ``noise (B, A)`` is the root
-    Dirichlet noise (drawn from ``generator`` unless given), ``dtype`` the
-    tree's float type."""
+    """The portable engine (the JAX package's ``run_mcts(backend="xla")``):
+    root expansion, then simulations 1..S-1 of :func:`simulate_once`, or,
+    for a network evaluator with ``cfg.leaf_batch = K > 1``, ``ceil((S-1)/K)``
+    rounds of :func:`simulate_round` from slots ``1 + r·K``.
+    ``eval_fn=None`` is vanilla search with rollouts drawn from
+    ``generator``; ``noise (B, A)`` is the root Dirichlet noise (drawn from
+    ``generator`` unless given), ``dtype`` the tree's float type."""
     dev = resolve_device(device)
     if eval_fn is None:
         use_dirichlet = noise = None
@@ -352,8 +443,13 @@ def run_mcts_xla(env, eval_fn, boards, players, move_counts, dones,
     dcap = int(min(env.max_moves + 1, S + 1))
     expand_root(env, cfg, tree, eval_fn, dones.to(torch.bool), use_dirichlet,
                 noise, generator)
-    for slot in range(1, S):
-        simulate_once(env, cfg, tree, slot, eval_fn, generator, dcap)
+    K = cfg.leaf_batch
+    if eval_fn is not None and K > 1:
+        for r in range(-(-(S - 1) // K)):
+            simulate_round(env, cfg, tree, 1 + r * K, eval_fn, dcap)
+    else:
+        for slot in range(1, S):
+            simulate_once(env, cfg, tree, slot, eval_fn, generator, dcap)
     return search_result(tree)
 
 
@@ -365,18 +461,15 @@ def run_mcts(env, eval_fn, boards, players, move_counts, dones,
 
     ``noise (B, A)`` is the root Dirichlet noise, drawn from ``generator``
     unless given; ``generator`` also draws vanilla search's rollouts.
-    Raises ``NotImplementedError`` for network search with
-    ``leaf_batch > 1`` (leaf batching, not ported).
     """
     if eval_fn is None:
         return run_mcts_xla(env, None, boards, players, move_counts, dones,
                             cfg, generator=generator, device=device)
-    if cfg.leaf_batch != 1:
-        raise NotImplementedError(
-            "leaf batching (leaf_batch > 1, the JAX engine's "
-            "_simulate_round) is module 3 of ROADMAP.md, not ported")
     kw = dict(generator=generator, use_dirichlet=use_dirichlet, noise=noise,
               device=device)
+    if cfg.leaf_batch > 1:
+        return run_mcts_xla(env, eval_fn, boards, players, move_counts, dones,
+                            cfg, **kw)
     spec = getattr(eval_fn, "dense_spec", None)
     if spec is not None and cfg.num_simulations + 2 < 512:
         from alphazero_tpu_torch.search.fused import run_mcts_fused

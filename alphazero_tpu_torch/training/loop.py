@@ -8,20 +8,29 @@ Collection doubles after ``reject_double_after`` rejections in a row, and
 every ``vanilla_eval_every`` promotions the best parameters play a sanity
 match against vanilla (rollout) search.  Any ported family trains: the
 dense tower collects through the whole-chunk search, the ResNet move by
-move on the per-simulation engine.  Checkpoints, the metrics logger and
-``config.json`` are module 9 of ROADMAP.md and are not ported yet.
+move on the per-simulation engine (its forward the fused tower kernel with
+``fused_resnet``; the learner keeps the module forward).  Every phase logs a
+JSON-line record (``collect``, ``train``, ``gate``, ``vanilla_eval``,
+``iteration``, with the JAX package's field names); with a ``workdir`` the
+run's ``config.json`` is written there and every promotion saves a
+checkpoint (``utils/checkpoint.py``) of both parameter sets, the replay
+buffer, the generator of the learner's and the gate's draws, ``version``
+and ``outer_iter``, what the JAX package saves.  Neither package saves the
+self-play state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
-from alphazero_tpu_torch.config import Config
+from alphazero_tpu_torch.config import Config, save_config
 from alphazero_tpu_torch.data.augment import Symmetries
-from alphazero_tpu_torch.data.replay import create, num_rows_augmented
+from alphazero_tpu_torch.data.replay import (ReplayBuffer, create,
+                                             num_rows_augmented)
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.eval.arena import Agent, compare
@@ -29,6 +38,8 @@ from alphazero_tpu_torch.models import build_model, init_params, make_eval_fn
 from alphazero_tpu_torch.training import learner
 from alphazero_tpu_torch.training.selfplay import (init_selfplay,
                                                    make_selfplay_runner)
+from alphazero_tpu_torch.utils.checkpoint import CheckpointManager
+from alphazero_tpu_torch.utils.metrics import MetricsLogger
 
 SELFPLAY_CHUNK_STEPS = 32
 TRAIN_CHUNK_STEPS = 32
@@ -40,11 +51,22 @@ def _copy(params: dict) -> dict:
 
 class Trainer:
     """Single-device trainer.  ``device`` defaults to the GPU; without CUDA
-    the constructor raises unless ``device="cpu"`` is passed."""
+    the constructor raises unless ``device="cpu"`` is passed.  ``logger``
+    defaults to a ``MetricsLogger`` on stdout; ``display`` renders game 0
+    after every self-play chunk; ``persist_config=False`` (read-only
+    commands) leaves ``workdir/config.json`` alone; ``fused_resnet`` is the
+    fused tower opt-in for self-play, the gate and the vanilla match."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda",
+                 workdir: Optional[str] = None,
+                 logger: Optional[MetricsLogger] = None,
+                 display: bool = False, persist_config: bool = True,
+                 fused_resnet: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.display = display
+        self.fused_resnet = fused_resnet
+        self.log = logger or MetricsLogger()
         self.env = make_env(cfg.env)
         self.model = build_model(cfg.model, self.env).to(self.device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
@@ -67,7 +89,12 @@ class Trainer:
         self._chunk_steps = (cfg.train.selfplay_chunk_steps
                              or SELFPLAY_CHUNK_STEPS)
         self._runner = make_selfplay_runner(self.env, self.model, cfg.mcts,
-                                            cfg.replay, self._chunk_steps)
+                                            cfg.replay, self._chunk_steps,
+                                            fused_resnet)
+        self._ckpt = (CheckpointManager(f"{workdir}/checkpoints")
+                      if workdir else None)
+        if workdir and persist_config:
+            save_config(cfg, workdir)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -80,24 +107,31 @@ class Trainer:
 
         As in the JAX trainer, the loop reads the game counter from before
         the chunk it just ran, so it plays at most one chunk past the
-        target.  Each chunk ends in a device synchronisation, and its
-        seconds are reported in ``chunk_seconds``."""
+        target; with ``display`` it reads it after each chunk, renders game
+        0 and stops at the target.  Each chunk ends in a device
+        synchronisation, and its seconds are reported in
+        ``chunk_seconds``."""
         start_games = int(self.sp.games_done)
         start_steps = int(self.sp.env_steps)
         chunk_seconds = []
         t0 = time.perf_counter()
-        while True:
+        while not (self.display
+                   and int(self.sp.games_done) - start_games >= games_target):
             done_prev = self.sp.games_done
             tc = time.perf_counter()
             self.sp, self.buffer = self._runner(self.params_best, self.sp,
                                                 self.buffer)
             self._sync()
             chunk_seconds.append(time.perf_counter() - tc)
-            if int(done_prev) - start_games >= games_target:
+            if self.display:
+                s = self.sp.env_state
+                print(f"[game 0, move {int(s.move_count[0])}]\n"
+                      f"{self.env.render(s, 0)}", flush=True)
+            elif int(done_prev) - start_games >= games_target:
                 break
         dt = time.perf_counter() - t0
         steps = int(self.sp.env_steps) - start_steps
-        return {
+        m = {
             "games": int(self.sp.games_done) - start_games,
             "env_steps": steps,
             "env_steps_per_s": steps / max(dt, 1e-9),
@@ -107,6 +141,8 @@ class Trainer:
             "seconds": dt,
             "chunk_seconds": chunk_seconds,
         }
+        self.log.log("collect", **m)
+        return m
 
     def _buffer_rows(self) -> int:
         """Buffer occupancy in augmented rows (symmetry orbits counted)."""
@@ -130,21 +166,28 @@ class Trainer:
             syms=self._syms if self.cfg.replay.augment else None,
             augment_skip=self.cfg.replay.augment_skip_moves,
             chunk_steps=TRAIN_CHUNK_STEPS)
-        m = {k: float(v) for k, v in metrics._asdict().items()}
-        return {"steps": steps, **m, "seconds": time.perf_counter() - t0}
+        m = {"steps": steps,
+             **{k: float(v) for k, v in metrics._asdict().items()},
+             "seconds": time.perf_counter() - t0}
+        self.log.log("train", **m)
+        return m
 
     def gate(self) -> float:
         """Contender-vs-best arena of ``gate_games`` games with visit
         sampling → the contender's win rate; 1.0 when the gate is disabled."""
         if not self.cfg.train.gate_enabled:
             return 1.0
-        best = Agent(make_eval_fn(self.model, self.params_best), self.cfg.mcts)
-        cont = Agent(make_eval_fn(self.model, self.params_new), self.cfg.mcts)
+        best = Agent(self._eval_fn(self.params_best), self.cfg.mcts)
+        cont = Agent(self._eval_fn(self.params_new), self.cfg.mcts)
         rate, score = compare(self.env, best, cont, self.cfg.train.gate_games,
                               generator=self.generator, sampling=True,
                               device=self.device)
         self.last_gate_score = score.tolist()
+        self.log.log("gate", win_rate=rate, score=self.last_gate_score)
         return rate
+
+    def _eval_fn(self, params):
+        return make_eval_fn(self.model, params, self.fused_resnet)
 
     def vanilla_sanity_match(self, games: int = 2) -> float:
         """The best parameters against vanilla search with
@@ -154,19 +197,21 @@ class Trainer:
         sims = min(self.cfg.mcts.num_simulations * max(self.version, 1), 400)
         vanilla = Agent(None, dataclasses.replace(self.cfg.mcts,
                                                   num_simulations=sims))
-        model = Agent(make_eval_fn(self.model, self.params_best),
-                      self.cfg.mcts)
+        model = Agent(self._eval_fn(self.params_best), self.cfg.mcts)
         rate, score = compare(self.env, vanilla, model, games,
                               generator=self.generator, device=self.device)
         self.last_vanilla_score = score.tolist()
+        self.log.log("vanilla_eval", model_win_rate=rate, vanilla_sims=sims,
+                     score=self.last_vanilla_score)
         return rate
 
     # ------------------------------------------------------------ iteration
     def iterate(self, vanilla_eval: bool = True) -> dict:
-        """One outer iteration.  With ``vanilla_eval``, a promotion that
-        brings ``version`` to a multiple of ``vanilla_eval_every`` is
-        followed by :meth:`vanilla_sanity_match`, whose rate the result
-        holds as ``vanilla_win_rate``."""
+        """One outer iteration.  A promotion saves a checkpoint (with a
+        workdir); with ``vanilla_eval``, one that brings ``version`` to a
+        multiple of ``vanilla_eval_every`` is followed by
+        :meth:`vanilla_sanity_match`, whose rate the result holds as
+        ``vanilla_win_rate``."""
         t = self.cfg.train
         self.outer_iter += 1
         games = t.games_per_iter
@@ -184,18 +229,99 @@ class Trainer:
             self.params_best = _copy(self.params_new)
             self.version += 1
             self.reject_count = 0
+            self.save_checkpoint()
             if vanilla_eval and self.version % t.vanilla_eval_every == 0:
                 extra["vanilla_win_rate"] = self.vanilla_sanity_match()
         else:
             self.params_new = _copy(self.params_best)
             self.reject_count += 1
-        return {"iter": self.outer_iter, "version": self.version,
-                "accepted": bool(accepted), "gate_rate": rate, **cm, **tm,
-                "collect_seconds": cm["seconds"],
-                "train_seconds": tm["seconds"], "gate_seconds": gate_seconds,
-                **extra}
+        m = {"iter": self.outer_iter, "version": self.version,
+             "accepted": bool(accepted), "gate_rate": rate, **cm, **tm,
+             "collect_seconds": cm["seconds"],
+             "train_seconds": tm["seconds"], "gate_seconds": gate_seconds,
+             **extra}
+        self.log.log("iteration", **m)
+        return m
 
     def run(self, iterations=None, vanilla_eval: bool = True):
         n = iterations or self.cfg.train.outer_iterations
         for _ in range(n):
             self.iterate(vanilla_eval=vanilla_eval)
+
+    # ---------------------------------------------------------- checkpoint
+    def _state(self) -> dict:
+        return {
+            "params_best": self.params_best,
+            "params_new": self.params_new,
+            "buffer": {f.name: getattr(self.buffer, f.name)
+                       for f in dataclasses.fields(ReplayBuffer)},
+            "generator": self.generator.get_state(),
+            "version": torch.tensor(self.version),
+            "outer_iter": torch.tensor(self.outer_iter),
+        }
+
+    def save_checkpoint(self):
+        """Save the state at step ``version`` (with a workdir)."""
+        if self._ckpt:
+            self._ckpt.save(self.version, self._state())
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> bool:
+        """Load the state of ``step`` (default: the latest); False when
+        there is no workdir or no checkpoint.  Raises ``ValueError`` when
+        its names, shapes or dtypes differ from this trainer's."""
+        if not self._ckpt:
+            return False
+        state = self._ckpt.restore(self._state(), step=step)
+        if state is None:
+            return False
+        dev = self.device
+        self.params_best = {k: v.to(dev) for k, v in
+                            state["params_best"].items()}
+        self.params_new = {k: v.to(dev) for k, v in
+                           state["params_new"].items()}
+        self.buffer = ReplayBuffer(**{k: v.to(dev) for k, v in
+                                      state["buffer"].items()})
+        self.generator.set_state(state["generator"])
+        self.version = int(state["version"])
+        self.outer_iter = int(state["outer_iter"])
+        return True
+
+    def import_buffer(self, workdir: str, step: Optional[int] = None) -> int:
+        """Seed this run's replay buffer with the newest ``min(size,
+        capacity)`` game blocks of another run's checkpoint (the JAX
+        package's ring arithmetic: oldest first, from the cursor when the
+        source ring is full).  The env geometry must match.  Returns the
+        blocks imported."""
+        src = CheckpointManager(f"{workdir}/checkpoints").restore_raw(step)
+        if src is None:
+            raise FileNotFoundError(f"no checkpoint under {workdir}")
+        b = src["buffer"]
+        if tuple(b["obs"].shape[1:]) != tuple(self.buffer.obs.shape[1:]):
+            raise ValueError(
+                f"buffer geometry mismatch: source blocks "
+                f"{tuple(b['obs'].shape[1:])}, this env needs "
+                f"{tuple(self.buffer.obs.shape[1:])}")
+        size, cursor = int(b["size"]), int(b["cursor"])
+        cap_src = b["obs"].shape[0]
+        k = min(size, self.buffer.capacity)
+        if size < cap_src:
+            idx = torch.arange(size - k, size)
+        else:                      # ring full: the oldest block is at cursor
+            idx = (cursor - k + torch.arange(k)) % cap_src
+        dev, buf = self.device, self.buffer
+        for name, dtype in (("obs", torch.int8), ("policy", torch.float32),
+                            ("length", torch.int32), ("winner", torch.int32)):
+            getattr(buf, name)[:k] = b[name][idx].to(dev, dtype)
+        buf.cursor = torch.tensor(k % buf.capacity, dtype=torch.int32,
+                                  device=dev)
+        buf.size = torch.tensor(k, dtype=torch.int32, device=dev)
+        return k
+
+    def expand_depth(self, new_depth: int):
+        """Depth expansion of the ViT; the ViT is module 11 of ROADMAP.md
+        and is not ported, so this raises for every family."""
+        if self.cfg.model.family != "vit":
+            raise ValueError("depth expansion applies to the ViT family "
+                             f"(this run: {self.cfg.model.family!r})")
+        raise NotImplementedError("the ViT family is module 11 of "
+                                  "ROADMAP.md, not ported")

@@ -7,11 +7,13 @@ Counterpart of the JAX package's ``training/selfplay.py``.  Two runners:
   then its per-move records are folded into the per-game trajectory slabs
   and every finished game's slab is flushed into the replay ring, once per
   done event;
-* every other family, one move at a time (:func:`selfplay_step`): a
-  ``run_mcts`` search of all games (the per-simulation engine for the
-  ResNet), the action (visit-sampled before ``temperature_moves``, the
-  first most-visited after), the env step, the position recorded in its
-  game's slab, finished games flushed into the ring and reset.
+* every other family, and the dense tower with leaf batching, one move at
+  a time (:func:`selfplay_step`): a ``run_mcts`` search of all games (the
+  per-simulation engine for the ResNet, the portable engine's leaf-batched
+  rounds for ``leaf_batch > 1``), the action (visit-sampled before
+  ``temperature_moves``, the first most-visited after), the env step, the
+  position recorded in its game's slab, finished games flushed into the
+  ring and reset.
 """
 
 from __future__ import annotations
@@ -179,21 +181,23 @@ def selfplay_step(env, eval_fn, mcts_cfg: MCTSConfig, sp: SelfPlayState,
 
 
 def make_selfplay_runner(env, model, mcts_cfg: MCTSConfig,
-                         replay_cfg: ReplayConfig, num_steps: int) -> Callable:
+                         replay_cfg: ReplayConfig, num_steps: int,
+                         fused_resnet: bool = False) -> Callable:
     """``runner(params, sp, buffer) -> (sp, buffer)`` advancing every game
     ``num_steps`` moves: through the whole-chunk search for the dense
-    tower, through ``num_steps`` :func:`selfplay_step` calls otherwise."""
-    if mcts_cfg.leaf_batch != 1:
-        raise ValueError("self-play is ported with sequential simulations "
-                         "(leaf_batch=1) only")
-    if isinstance(model, DenseTower):
+    tower with sequential simulations (``leaf_batch == 1``, as the JAX
+    package's ``supports_selfplay_fused`` requires), through ``num_steps``
+    :func:`selfplay_step` calls otherwise, with one evaluator per call of
+    the runner (``make_eval_fn(..., fused_resnet)``: the fused tower's
+    weights are packed once per chunk)."""
+    if isinstance(model, DenseTower) and mcts_cfg.leaf_batch == 1:
         def run(params, sp: SelfPlayState, buffer: ReplayBuffer):
             return selfplay_chunk(env, model, params, mcts_cfg, replay_cfg,
                                   sp, buffer, num_steps)
         return run
 
     def run_steps(params, sp: SelfPlayState, buffer: ReplayBuffer):
-        eval_fn = make_eval_fn(model, params)
+        eval_fn = make_eval_fn(model, params, fused_resnet)
         for _ in range(num_steps):
             sp, buffer = selfplay_step(env, eval_fn, mcts_cfg, sp, buffer)
         return sp, buffer

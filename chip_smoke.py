@@ -44,8 +44,22 @@ Phases (any failure exits non-zero before the final line):
      show 0), seconds of collect, train and gate, env-steps/s, checks on the
      games, the gate's searches and the bookkeeping; then one self-play
      move and one gate move profiled;
-then the main-path summary, one JSON line of all ten kernels, the card line,
-and the device JSON.
+ 10. the fused ResNet tower (kernel 5, csrc/resnet_tower.cu) behind the
+     port's CLI: ``AZ_FUSED_RESNET=1`` and ``cli.main(["train", "--preset",
+     "connect4-resnet", "--iterations", "1", "--workdir",
+     "build/smoke_cli"])`` in process at full width, launch counts set to 0
+     before and measured per phase (the tower 200 x searches in collect and
+     gate, the sim kernels 199 x searches, the dense kernels 0);
+     metrics.jsonl, config.json, the checkpoint restored into a fresh
+     trainer, ``eval --vs self --games 32`` and ``agent_move`` for a
+     connect4 dense agent and a tictactoe ResNet; then the tower kernel
+     against its plain version on the run's self-play snapshot (B=512 and
+     B=128) and at gomoku9 128x8, B=256, with times, the eager forward's
+     time and the bound; one self-play move profiled under the fused and the
+     eager evaluator, and one gate move under the fused evaluator; one
+     leaf-batched search (K=8) on the fused evaluator;
+then the main-path summaries, one JSON line of all eleven kernels, the card
+line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ REPLACES = "alphazero_tpu/search/pallas_fused.py:805"        # _chunk_kernel
 REPLACES_MOVE = "alphazero_tpu/search/pallas_fused.py:661"   # _move_kernel
 REPLACES_SIM = {"az_sim_step": "alphazero_tpu/search/pallas_mcts.py:555",
                 "az_sim_flush": "alphazero_tpu/search/pallas_mcts.py:685"}
+REPLACES_TOWER = "alphazero_tpu/ops/pallas_resnet.py:76"        # _kernel
 
 
 def fail(msg):
@@ -114,7 +129,8 @@ def nbytes(*ts):
 
 # kernel function names in csrc/ → the C entry that launches each (a name
 # that holds another comes first)
-KERNEL_FUNCS = {"sim_step_kernel": "az_sim_step",
+KERNEL_FUNCS = {"resnet_tower_kernel": "az_resnet_tower",
+                "sim_step_kernel": "az_sim_step",
                 "sim_flush_kernel": "az_sim_flush",
                 "move_root_init_kernel": "az_move_root_init",
                 "root_counts_kernel": "az_root_counts",
@@ -481,20 +497,22 @@ def resnet_iterate_phase(gen, dev):
     from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.eval import arena
     from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops import resnet_tower
     from alphazero_tpu_torch.search import fused, sim
     from alphazero_tpu_torch.search.mcts import run_mcts
     from alphazero_tpu_torch.training import Trainer
     from alphazero_tpu_torch.training.selfplay import selfplay_step
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
 
     cfg = preset("connect4-resnet")
-    tr = Trainer(cfg, device="cuda")
+    tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     env, mcfg = tr.env, cfg.mcts
     S, B = mcfg.num_simulations, cfg.train.selfplay_batch
     log(f"[resnet iterate] model {type(tr.model).__name__} channels "
         f"{tr.model.channels} blocks {tr.model.blocks}, {S} sims, B={B}, "
         f"{cfg.train.gate_games} gate games")
     init = {k: v.clone() for k, v in tr.params_best.items()}
-    kernels = fused.KERNELS + sim.KERNELS
+    kernels = fused.KERNELS + sim.KERNELS + resnet_tower.KERNELS
     split, trace = {}, []
     counts = counted_phases(tr, ("collect", "train_epoch", "gate"), kernels,
                             split)
@@ -527,7 +545,7 @@ def resnet_iterate_phase(gen, dev):
         full = {k.name: want.get(k.name, 0) for k in kernels}
         if got != full:
             fail(f"{phase} launches {got} != expected {full} (the dense "
-                 "kernels must show 0)")
+                 "kernels and the fused tower must show 0)")
     if any(sum(split[ph][n] for ph in split) != total[n] for n in total):
         fail("the per-phase launch counts do not add up to the total")
     log(f"[resnet iterate] collect {it['collect_seconds']:.3f} s "
@@ -621,6 +639,355 @@ def resnet_iterate_phase(gen, dev):
     return split, total, it, sp_ms, gate_ms, sp_wall, gate_wall
 
 
+# (max, median) of |kernel - plain| over logits and value, per tower: bf16
+# reads of float32 sums taken in another order round the other way near a
+# bf16 boundary, more often the deeper the tower (the card gave 2.9e-3 /
+# 3e-7 at 64×4 and 1.2e-2 / 1.1e-3 at 128×8 on random weights)
+TOL_TOWER = {"connect4-resnet": (2e-2, 1e-5), "gomoku9": (5e-2, 5e-3)}
+
+
+def states_equal(a, b):
+    """Nested dicts of tensors, equal name for name and bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(states_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def fused_resnet_phase(gen, dev):
+    """Phase 10: the fused ResNet tower (kernel 5) behind the port's CLI.
+    b. ``AZ_FUSED_RESNET=1`` and ``cli.main(["train", "--preset",
+    "connect4-resnet", "--iterations", "1", ...])`` in process, launches
+    counted per phase; metrics.jsonl, config.json and the checkpoint
+    restored into a fresh trainer; ``eval --vs self``; ``agent_move`` for a
+    connect4 dense agent (B=1) and a tictactoe ResNet.  a. the tower kernel
+    against its plain version on the run's self-play snapshot (B=512 and
+    B=128) and at gomoku9's 128×8, B=256, with times and bounds.  c. one
+    self-play move profiled under the fused and the eager evaluator.  d. one
+    leaf-batched search (K=8, B=512) on the fused evaluator.  c also
+    profiles one gate move (2 x B=128) on the fused evaluator."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import shutil
+
+    from alphazero_tpu_torch import cli
+    from alphazero_tpu_torch.config import preset, to_json
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.eval.play import agent_move
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    from alphazero_tpu_torch.ops import resnet_tower as rt
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import run_mcts
+    from alphazero_tpu_torch.training import Trainer
+    from alphazero_tpu_torch.training.selfplay import selfplay_step
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
+
+    cfg = preset("connect4-resnet")
+    mcfg = cfg.mcts
+    S, B = mcfg.num_simulations, cfg.train.selfplay_batch
+    kernels = fused.KERNELS + sim.KERNELS + rt.KERNELS
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    # ---- b. the user's command, in process
+    wd = "build/smoke_cli"
+    shutil.rmtree(wd, ignore_errors=True)
+    split, gate_trace = {}, []
+    methods = {ph: getattr(Trainer, ph)
+               for ph in ("collect", "train_epoch", "gate")}
+
+    def wrap(phase, fn):
+        def run(self, *a, **kw):
+            before = counts()
+            r = fn(self, *a, **kw)
+            split[phase] = {n: c - before[n] for n, c in counts().items()}
+            return r
+        return run
+
+    def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
+                        **kw):
+        res = run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_, **kw)
+        gate_trace.append((dones, res.visit_counts))
+        return res
+
+    argv = ["train", "--preset", "connect4-resnet", "--iterations", "1",
+            "--workdir", wd]
+    os.environ["AZ_FUSED_RESNET"] = "1"
+    for ph, fn in methods.items():
+        setattr(Trainer, ph, wrap(ph, fn))
+    arena.run_mcts = traced_run_mcts
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = cli.main(argv)
+    finally:
+        for ph, fn in methods.items():
+            setattr(Trainer, ph, fn)
+        arena.run_mcts = run_mcts
+    t_cli = time.perf_counter() - t0
+    total = counts()
+    env = tr.env
+    with open(f"{wd}/metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    kinds = [r["kind"] for r in recs]
+    it = recs[-1]
+    M = cfg.train.selfplay_chunk_steps or 32
+    moves = len(it["chunk_seconds"]) * M
+    gsearch = 2 * env.max_moves
+    expect = {
+        "collect": {"az_resnet_tower": moves * S,
+                    "az_sim_step": moves * (S - 1), "az_sim_flush": moves},
+        "train_epoch": {},
+        "gate": {"az_resnet_tower": gsearch * S,
+                 "az_sim_step": gsearch * (S - 1), "az_sim_flush": gsearch}}
+    log(f"[fused cli] AZ_FUSED_RESNET=1 python -m alphazero_tpu_torch "
+        f"{' '.join(argv)}: {t_cli:.1f} s; launches {total}; measured per "
+        f"phase {split}")
+    for phase, want in expect.items():
+        full = {k.name: want.get(k.name, 0) for k in kernels}
+        if split.get(phase) != full:
+            fail(f"fused cli {phase} launches {split.get(phase)} != expected "
+                 f"{full} (the dense kernels must show 0)")
+    if any(sum(split[ph][n] for ph in split) != total[n] for n in total):
+        fail("the per-phase launch counts do not add up to the total")
+    log(f"[fused cli] collect {it['collect_seconds']:.3f} s "
+        f"({len(it['chunk_seconds'])} chunks of {M} moves, {it['games']} "
+        f"games, {it['env_steps']} env-steps, {it['env_steps_per_s']:.1f} "
+        f"env-steps/s); train {it['train_seconds']:.3f} s ({it['steps']} "
+        f"steps, loss {it['loss']:.4f}); gate {it['gate_seconds']:.3f} s "
+        f"(score {tr.last_gate_score}, rate {it['gate_rate']}, accepted "
+        f"{it['accepted']})")
+
+    # the checkpoint: the run's own at a promotion, else saved here
+    if it["accepted"]:
+        case = "promoted: the run saved its checkpoint at version 1"
+    else:
+        tr.save_checkpoint()
+        case = "rejected: this phase saved the trainer's state at version 0"
+    fresh = Trainer(tr.cfg, device="cuda", workdir=wd, persist_config=False,
+                    logger=MetricsLogger(stdout=False), fused_resnet=True)
+    restored = fresh.restore_checkpoint()
+    log(f"[fused cli] checkpoint: {case}")
+    with open(f"{wd}/config.json") as f:
+        cfg_text = f.read()
+    checks = {
+        "metrics.jsonl holds collect, train, gate, iteration":
+            kinds == ["collect", "train", "gate", "iteration"],
+        "config.json equals to_json(preset)": cfg_text == to_json(cfg),
+        "the tower launched in collect and in gate": (
+            split["collect"]["az_resnet_tower"] > 0
+            and split["gate"]["az_resnet_tower"] > 0),
+        "a fresh Trainer restores equal state": restored and states_equal(
+            tr._state(), fresh._state()),
+        "gate score sums to the game count": sum(
+            tr.last_gate_score[:2]) == cfg.train.gate_games,
+        "gate: every search recorded, live roots S-1, finished none": (
+            len(gate_trace) == gsearch and all(
+                bool((c.sum(-1)[~d] == S - 1).all())
+                and bool((c.sum(-1)[d] == 0).all()) for d, c in gate_trace)),
+        "finite losses": all(math.isfinite(it[k]) for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+    }
+
+    # eval --vs self on the run's checkpoint, through the CLI
+    n0 = rt.K_TOWER.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = cli.main(["eval", "--preset", "connect4-resnet", "--workdir",
+                        wd, "--vs", "self", "--games", "32"])
+    t_eval = time.perf_counter() - t0
+    del os.environ["AZ_FUSED_RESNET"]
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    eval_launches = rt.K_TOWER.launches - n0
+    log(f"[fused cli] eval --vs self --games 32: {line} in {t_eval:.1f} s, "
+        f"{eval_launches} tower launches")
+    checks["eval prints its line, 32 games scored"] = (
+        line == res and line["games"] == 32 and sum(line["score"][:2]) == 32)
+    checks["eval searched on the tower: 2 x 42 searches x S"] = (
+        eval_launches == gsearch * S)
+
+    # agent_move: a connect4 dense agent (the move search at B=1) and a
+    # tictactoe ResNet (the per-simulation engine)
+    for name, kname in (("connect4", "az_move_root_init"),
+                        ("tictactoe", "az_sim_flush")):
+        pc = preset(name)
+        e = make_env(pc.env)
+        m = build_model(pc.model, e).to(dev)
+        p = {k: v.to(dev) for k, v in init_params(
+            m, torch.Generator().manual_seed(0)).items()}
+        st = e.init(1, dev)
+        before = counts()
+        a = agent_move(e, make_eval_fn(m, p), st, gen,
+                       dataclasses.replace(pc.mcts, use_dirichlet=False),
+                       verbose=False)
+        ran = counts()[kname] - before[kname]
+        log(f"[agent_move] {name} ({pc.model.family}, B=1): action {a}, "
+            f"{kname} launched {ran}")
+        checks[f"agent_move {name}: a legal action on the card"] = (
+            bool(e.valid_mask(st)[0, a]) and ran == 1)
+
+    # ---- a. the tower kernel against its plain version
+    summary = {}
+    snap = env.observation(tr.sp.env_state).contiguous()
+    pk = rt.pack(tr.params_best, cfg.model.blocks)
+    g9 = preset("gomoku9")
+    env9 = make_env(g9.env)
+    model9 = build_model(g9.model, env9).to(dev)
+    params9 = {k: v.to(dev) for k, v in init_params(
+        model9, torch.Generator().manual_seed(0)).items()}
+    st9 = random_positions(env9, g9.train.selfplay_batch, gen, dev)
+    cases = [("connect4-resnet", snap, pk, tr.model, tr.params_best),
+             ("connect4-resnet", snap[:cfg.train.gate_games // 2].contiguous(),
+              pk, tr.model, tr.params_best),
+             ("gomoku9", env9.observation(st9).contiguous(),
+              rt.pack(params9, g9.model.blocks), model9, params9)]
+    tower = {}
+    for pname, x, packed, model, params in cases:
+        Bx, F, R, Cc = x.shape
+        RC, C, nb = R * Cc, model.channels, model.blocks
+        fk = rt.resnet_tower(x, packed)
+        fp = rt.tower_reference(x, packed)
+        lk, vk = rt.heads(fk, packed)
+        lp, vp = rt.heads(fp, packed)
+        torch.cuda.synchronize()
+        err = torch.cat([(lk - lp).abs().reshape(-1), (vk - vp).abs()])
+        e_max, e_med = float(err.max()), float(err.median())
+        f_max = float((fk - fp).abs().max())
+        t_max, t_med = TOL_TOWER[pname]
+        ok = (bool(torch.isfinite(fk).all()) and e_max <= t_max
+              and e_med <= t_med)
+        ms_k, ms_p = alternate(lambda: rt.resnet_tower(x, packed),
+                               lambda: rt.tower_reference(x, packed),
+                               k_reps=20, p_reps=3)
+        eager = make_eval_fn(model, params)
+        ms_e = cuda_ms(lambda: eager(x), 5)
+        ops = 2.0 * Bx * RC * (9 * F * C + nb * 2 * 9 * C * C)
+        moved = (nbytes(x) + 2 * (9 * F * C + nb * 2 * 9 * C * C)
+                 + nbytes(packed["lns"]) + Bx * RC * C * 4)
+        b_ms, b_by = bound(moved, bf16_ops=ops)
+        tag = f"{pname} {C}x{nb} B={Bx}"
+        log(f"[tower] {tag}: logits+value max err {e_max:.3e} (tol {t_max}), "
+            f"median {e_med:.3e} (tol {t_med}), tower output max err "
+            f"{f_max:.3e} -> {'ok' if ok else 'FAIL'}; per call: kernel "
+            f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, eager F.conv2d forward "
+            f"(make_eval_fn) {ms_e:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{ops / 1e9:.3f} GFLOP bf16); {rt.plan_games(Bx, RC, C)} "
+            f"games per CTA")
+        if not ok:
+            fail(f"az_resnet_tower disagrees with its plain version ({tag})")
+        tower[tag] = dict(max_abs_err=e_max, median_abs_err=e_med, ms=ms_k,
+                          plain_ms=ms_p, eager_forward_ms=ms_e, bound_ms=b_ms,
+                          bound_by=b_by)
+
+    # ---- c. one self-play move, fused and eager evaluator, profiled
+    mcfg_sp = cfg.mcts
+    moves_prof = {}
+    for tag, fused_on in (("fused", True), ("eager", False)):
+        ev = make_eval_fn(tr.model, tr.params_best, fused_resnet=fused_on)
+
+        def sp_move(ev=ev):
+            tr.sp, tr.buffer = selfplay_step(env, ev, mcfg_sp, tr.sp,
+                                             tr.buffer)
+
+        sp_move()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp_move()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = device_profile(sp_move)
+        dev_ms = print_profile(f"one self-play move, {tag} evaluator "
+                               f"(B={B})", prof, wall)
+        fwd = device_profile(lambda ev=ev: ev(snap))
+        per_fwd = sum(n for n, _ in fwd[0].values()) if fwd else None
+        log(f"[profile] {tag} evaluator: {per_fwd} device launches per "
+            f"forward at B={B}")
+        moves_prof[tag] = dict(
+            wall_ms=wall, busy_ms=prof[1] / 1e3 if prof else None,
+            idle_share=1 - prof[1] / 1e3 / wall if prof else None,
+            launches_per_forward=per_fwd, dev_ms=dev_ms)
+
+    # one gate move (2 x B=128) on the fused evaluator, profiled
+    Bg = cfg.train.gate_games // 2
+    stg = random_positions(env, cfg.train.gate_games, gen, dev)
+    agents = (make_eval_fn(tr.model, tr.params_best, fused_resnet=True),
+              make_eval_fn(tr.model, tr.params_new, fused_resnet=True))
+
+    def gate_move():
+        for fn, sl in zip(agents, (slice(0, Bg), slice(Bg, None))):
+            run_mcts(env, fn, stg.board[sl], stg.current_player[sl],
+                     stg.move_count[sl], stg.done[sl], mcfg, generator=gen,
+                     device=dev)
+
+    gate_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate_move()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(gate_move)
+    gate_ms = print_profile(f"one gate move, fused evaluator (2 x B={Bg})",
+                            prof, wall)
+    moves_prof["gate_fused"] = dict(
+        wall_ms=wall, busy_ms=prof[1] / 1e3 if prof else None,
+        idle_share=1 - prof[1] / 1e3 / wall if prof else None,
+        dev_ms=gate_ms)
+
+    # ---- d. one leaf-batched search, K=8, on the fused evaluator
+    K = 8
+    s = tr.sp.env_state
+    ev = make_eval_fn(tr.model, tr.params_best, fused_resnet=True)
+    n0 = rt.K_TOWER.launches
+    t0 = time.perf_counter()
+    res = run_mcts(env, ev, s.board, s.current_player, s.move_count, s.done,
+                   dataclasses.replace(mcfg, leaf_batch=K), generator=gen,
+                   device=dev)
+    torch.cuda.synchronize()
+    t_lb = time.perf_counter() - t0
+    lb_launches = rt.K_TOWER.launches - n0
+    sums = res.visit_counts.sum(-1)
+    log(f"[leaf batch] K={K} B={B} S={S} on the fused evaluator: "
+        f"{lb_launches} tower launches (of {K * B} games each after the "
+        f"root), {t_lb:.2f} s")
+    checks[f"leaf batch: 1 + ceil({S - 1}/{K}) tower launches"] = (
+        lb_launches == 1 + -(-(S - 1) // K))
+    checks["leaf batch: live roots S-1 visits, finished none"] = (
+        bool((sums[~s.done] == S - 1).all())
+        and bool((sums[s.done] == 0).all()))
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("fused ResNet phase checks failed")
+
+    b512 = tower[f"connect4-resnet {cfg.model.channels}x{cfg.model.blocks} "
+                 f"B={B}"]
+    summary["az_resnet_tower"] = dict(
+        max_abs_err=max(t["max_abs_err"] for t in tower.values()),
+        ms=moves_prof["fused"]["dev_ms"].get("az_resnet_tower"),
+        gate_ms=moves_prof["gate_fused"]["dev_ms"].get("az_resnet_tower"),
+        call_ms=b512["ms"], plain_ms=b512["plain_ms"],
+        bound_ms=b512["bound_ms"], bound_by=b512["bound_by"],
+        eager_forward_ms=b512["eager_forward_ms"], by_shape=tower)
+    path = {"preset": "connect4-resnet", "argv": argv, "cli_seconds": t_cli,
+            "iterate": {k: it[k] for k in (
+                "collect_seconds", "train_seconds", "gate_seconds", "steps",
+                "games", "env_steps", "env_steps_per_s", "loss", "gate_rate",
+                "accepted", "chunk_seconds")},
+            "launches_by_phase": split, "checkpoint": case,
+            "eval": line, "eval_seconds": t_eval,
+            "moves": {k: {n: v for n, v in m.items() if n != "dev_ms"}
+                      for k, m in moves_prof.items()},
+            "leaf_batch": {"K": K, "seconds": t_lb,
+                           "tower_launches": lb_launches}}
+    return summary, split, total, path
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -637,6 +1004,7 @@ def main():
     from alphazero_tpu_torch.search.mcts import root_prior, run_mcts
     from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.training import Trainer
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -741,7 +1109,7 @@ def main():
         fail(f"search kernels differ from the plain chunk in {bad}")
 
     # ---- 4. the main path
-    tr = Trainer(cfg, device="cuda")
+    tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     for k in fused.KERNELS:
         k.launches = 0
     m = tr.collect(games_target=2 * B)
@@ -1024,7 +1392,7 @@ def main():
     summary["az_root_counts"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
 
     # ---- 7. the main path's outer iteration
-    tr7 = Trainer(cfg, device="cuda")
+    tr7 = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     init7 = {k: v.clone() for k, v in tr7.params_best.items()}
     trace, split = [], {}
 
@@ -1137,6 +1505,9 @@ def main():
     split9, total9, it9, sp_ms9, gate_ms9, sp_wall9, gate_wall9 = \
         resnet_iterate_phase(gen, dev)
 
+    # ---- 10. the fused ResNet tower behind the port's CLI
+    summary10, split10, total10, path10 = fused_resnet_phase(gen, dev)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -1169,6 +1540,20 @@ def main():
             "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None})
+    s = summary10["az_resnet_tower"]
+    kernels.append({
+        "name": "az_resnet_tower", "route": "cuda",
+        "source": "alphazero_tpu_torch/csrc/resnet_tower.cu",
+        "replaces": REPLACES_TOWER,
+        "launches": total10["az_resnet_tower"],
+        "launches_collect": split10["collect"]["az_resnet_tower"],
+        "launches_gate": split10["gate"]["az_resnet_tower"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "gate_ms": s["gate_ms"], "call_ms": s["call_ms"],
+        "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+        "library_ms": None, "eager_forward_ms": s["eager_forward_ms"],
+        "by_shape": s["by_shape"]})
     log(json.dumps({"main_path": {
         "preset": "connect4", "batch": B, "num_simulations": S,
         "chunk_moves": M, "chunk_seconds": chunk_seconds,
@@ -1186,6 +1571,7 @@ def main():
                                 "gate_rate", "accepted", "chunk_seconds")},
         "launches_by_phase": split9, "selfplay_move_ms": sp_wall9,
         "gate_move_ms": gate_wall9}}))
+    log(json.dumps({"fused_resnet_path": path10}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

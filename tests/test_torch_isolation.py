@@ -53,14 +53,18 @@ def test_sources_never_name_jax_or_the_jax_package():
 @pytest.mark.parametrize("entry", ["trainer", "chunk", "buffer", "selfplay",
                                    "move_search", "compare", "symmetries",
                                    "resnet_trainer", "sim_search",
-                                   "xla_search", "vanilla_search"])
+                                   "xla_search", "vanilla_search",
+                                   "leaf_batch_search", "cli_train",
+                                   "cli_eval", "play", "bench"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
+    from alphazero_tpu_torch import bench, cli
     from alphazero_tpu_torch import config as tcfg
     from alphazero_tpu_torch.data import Symmetries, create
     from alphazero_tpu_torch.envs import make_env
     from alphazero_tpu_torch.eval import Agent, compare
+    from alphazero_tpu_torch.eval.play import play_against_agent
     from alphazero_tpu_torch.search.fused import (run_mcts_fused,
                                                   run_selfplay_chunk)
     from alphazero_tpu_torch.search.mcts import run_mcts, run_mcts_xla
@@ -91,6 +95,15 @@ def test_entry_points_raise_without_cuda(entry):
                                            tcfg.MCTSConfig(num_simulations=4)),
         "vanilla_search": lambda: run_mcts(env, None, *roots,
                                            tcfg.MCTSConfig(num_simulations=4)),
+        "leaf_batch_search": lambda: run_mcts(
+            env, lambda obs: None, *roots,
+            tcfg.MCTSConfig(num_simulations=9, leaf_batch=4)),
+        "cli_train": lambda: cli.main(["train", "--preset", "tictactoe",
+                                       "--iterations", "1"]),
+        "cli_eval": lambda: cli.main(["eval", "--preset", "tictactoe"]),
+        "play": lambda: play_against_agent(
+            env, None, tcfg.MCTSConfig(num_simulations=4), 0),
+        "bench": lambda: bench.main(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -201,20 +201,37 @@ def test_move_search_real_weights_close_to_jax():
 
 
 def test_run_mcts_raises_for_unported_engines():
-    """Leaf batching (``leaf_batch > 1``) is the one engine not ported: a
-    network search with it raises, whatever the evaluator; vanilla search
-    ignores it, as the JAX package does."""
-    tenv = make_tenv("connect4")
+    """The dense tower's fused searches on a game other than connect4 are
+    the engines not ported (module 11): a dense tictactoe search raises.
+    Leaf batching (``leaf_batch > 1``) runs for any network evaluator, the
+    dense tower's included, on the portable engine; vanilla search ignores
+    it, as the JAX package does."""
+    from alphazero_tpu_torch.models import init_params as tinit
     z = torch.zeros(2, dtype=torch.int32)
-    args = (torch.zeros((2, 2, 6, 7), dtype=torch.int8), z, z,
-            torch.zeros(2, dtype=torch.bool))
+
+    def roots(env):
+        return (torch.zeros((2, 2, env.rows, env.cols), dtype=torch.int8), z,
+                z, torch.zeros(2, dtype=torch.bool))
+
+    def dense(env):
+        model = build_tmodel(tcfg.ModelConfig(family="dense", width=16,
+                                              blocks=1), env)
+        return make_teval_fn(model, tinit(model,
+                                          torch.Generator().manual_seed(0)))
+
+    ttt = make_tenv("tictactoe")
+    with pytest.raises(NotImplementedError, match="module 11"):
+        run_mcts(ttt, dense(ttt), *roots(ttt),
+                 tcfg.MCTSConfig(num_simulations=4), device="cpu")
+    tenv = make_tenv("connect4")
+    args = roots(tenv)
     cfg = tcfg.MCTSConfig(num_simulations=4, leaf_batch=2)
     stub = exact_stub_evaluator(tenv)
-    dense = make_teval_fn(build_tmodel(tcfg.ModelConfig(
-        family="dense", width=16, blocks=1), tenv), None)
-    for eval_fn in (lambda obs: stub(obs.reshape(obs.shape[0], -1)), dense):
-        with pytest.raises(NotImplementedError, match="module 3"):
-            run_mcts(tenv, eval_fn, *args, cfg, device="cpu")
+    for eval_fn in (lambda obs: stub(obs.reshape(obs.shape[0], -1)),
+                    dense(tenv)):
+        res = run_mcts(tenv, eval_fn, *args, cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        assert res.visit_counts.sum(-1).tolist() == [3, 3]
     res = run_mcts(tenv, None, *args, cfg, device="cpu",
                    generator=torch.Generator().manual_seed(0))
     assert res.visit_counts.sum(-1).tolist() == [3, 3]
