@@ -3,7 +3,8 @@
 Each source under ``csrc/`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), placed in
 ``build/alphazero_tpu_torch/`` at the repository root and named by a hash of
-the source and flags, so an edited source is rebuilt at its next use.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt at its next use.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Every C entry point takes pointers as ``void*`` (``tensor.data_ptr()``), the
@@ -63,6 +64,9 @@ def _flags(source: str):
 
 def lib_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 

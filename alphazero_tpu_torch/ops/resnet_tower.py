@@ -27,19 +27,21 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
-from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
+from alphazero_tpu_torch.ops.build import (CudaKernel, check, load, plain,
+                                          stream)
 
 TAPS = [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
 LN_EPS = 1e-6
 CIN_STEM = 16          # the stem's input channels, zero-padded (a k-step)
 MAX_CHANNELS = 128
 SMEM_LIMIT = 232_448   # dynamic shared memory one CTA may use on sm_90
-WARPS = 8
+WARPS = 16             # warps per CTA of az_resnet_tower
 
 
 def neighbour_index(rows: int, cols: int) -> np.ndarray:
@@ -164,41 +166,88 @@ def heads(feat: torch.Tensor, packed: dict):
     return logits, value
 
 
-def smem_bytes(games: int, RC: int, C: int) -> int:
-    """Dynamic shared memory of a tile of ``games`` games (as
-    ``csrc/resnet_tower.cu:layout``): h and y float32, the bf16 copy with
-    8 columns of padding, the int16 neighbour table."""
-    M16 = -(-games * RC // 16) * 16
-    return M16 * C * 8 + M16 * (C + 8) * 2 + 9 * M16 * 2
+def padded_rows(games: int, RC: int, mt: int) -> int:
+    """Rows of a tile of ``games`` games, padded to whole warp items of
+    ``mt`` m-tiles of 16 rows."""
+    q = 16 * mt
+    return -(-games * RC // q) * q
+
+
+def smem_bytes(games: int, RC: int, C: int, mt: int, stages: int,
+               tps: int) -> int:
+    """Dynamic shared memory of a tile (as ``csrc/resnet_tower.cu:layout``):
+    the float32 residual stream and the bf16 conv input (one more row, the
+    zero row), both with 8 columns of padding, the int16 neighbour table and
+    ``stages`` stages of ``tps`` taps of C × C bf16 weights."""
+    Mp = padded_rows(games, RC, mt)
+    r16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    return (Mp * (C + 8) * 4 + r16((Mp + 1) * (C + 8) * 2) + r16(9 * Mp * 2)
+            + stages * tps * C * C * 2)
+
+
+# (taps per stage, stages) of the weight ring, in order of preference: a
+# CTA waits and synchronises once per stage, which costs more than a
+# shallower ring (csrc/resnet_tower.cu gives the measured times)
+RINGS = ((9, 2), (3, 3), (3, 2), (1, 3), (1, 2))
+
+
+def plan(B: int, RC: int, C: int, sms: int) -> dict:
+    """Launch geometry of ``az_resnet_tower`` on a card of ``sms``
+    streaming multiprocessors: games per CTA, m-tiles per warp (each of the
+    16 warps owns at most one item of ``mt`` m-tiles; 2 only at C ≤ 64,
+    where a warp's accumulators still fit) and the weight ring.  Where the
+    batch fits one wave of ≤ ``sms`` CTAs, the fewest games per CTA that
+    give it, with the first of :data:`RINGS` that fits them.  Otherwise the
+    ring with the most taps per stage that fits a game, then the most games
+    it holds (more waves of whole-conv stages beat fewer of single taps).
+    Raises ``ValueError`` when one game does not fit."""
+    max_mt = 2 if C <= 64 else 1
+    most = min(-(-B // sms), WARPS * 16 * max_mt // RC)
+
+    def fit(games, rings):
+        mt = 1 if padded_rows(games, RC, 1) <= WARPS * 16 else 2
+        for tps, stages in rings:
+            smem = smem_bytes(games, RC, C, mt, stages, tps)
+            if smem <= SMEM_LIMIT:
+                return {"games": games, "mt": mt, "stages": stages,
+                        "taps_per_stage": tps, "smem_bytes": smem,
+                        "ctas": -(-B // games)}
+        return None
+
+    if most >= 1 and -(-B // most) <= sms:
+        one_wave = fit(most, RINGS)
+        if one_wave is not None:
+            return one_wave
+    for taps in sorted({t for t, _ in RINGS}, reverse=True):
+        rings = [r for r in RINGS if r[0] == taps]
+        for games in range(most, 0, -1):
+            pl = fit(games, rings)
+            if pl is not None:
+                return pl
+    need = smem_bytes(1, RC, C, 1, 2, 1)
+    raise ValueError(f"one game of {RC} cells at {C} channels needs {need} "
+                     f"bytes of shared memory and {RC} rows, over the "
+                     f"{SMEM_LIMIT} bytes a CTA may use or the "
+                     f"{WARPS * 16 * max_mt} rows of its warps")
 
 
 def check_shape(rows: int, cols: int, F: int, C: int):
     """Raise ``ValueError`` unless the kernel takes this tower: channels a
     multiple of 16 up to 128, 1 to 16 input planes, one game's activations
     in one CTA's shared memory."""
-    RC = rows * cols
     if C % 16 or not 16 <= C <= MAX_CHANNELS:
         raise ValueError(f"the fused ResNet tower takes channels a multiple of "
                          f"16 from 16 to {MAX_CHANNELS}, not {C}")
     if not 1 <= F <= CIN_STEM:
         raise ValueError(f"the fused ResNet tower takes 1 to {CIN_STEM} input "
                          f"planes, not {F}")
-    if smem_bytes(1, RC, C) > SMEM_LIMIT:
-        raise ValueError(f"one {rows}x{cols} game at {C} channels needs "
-                         f"{smem_bytes(1, RC, C)} bytes of shared memory, "
-                         f"over the {SMEM_LIMIT} a CTA may use")
+    plan(1, rows * cols, C, 1)
 
 
-def plan_games(B: int, RC: int, C: int) -> int:
-    """Games per CTA: enough 16-row × 32-channel tiles to give each of the 8
-    warps one, but no fewer CTAs than SMs (132) where the batch allows, and
-    within shared memory."""
-    groups = -(-C // 32)
-    g = -(-WARPS * 16 // (groups * RC))
-    g = max(1, min(g, B // 132))
-    while g > 1 and smem_bytes(g, RC, C) > SMEM_LIMIT:
-        g -= 1
-    return g
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _P = ctypes.c_void_p
@@ -207,7 +256,8 @@ _I = ctypes.c_int
 K_TOWER = CudaKernel("resnet_tower.cu", "az_resnet_tower", [
     _P, _I, _I, _I, _I, _I, _I,   # x B F rows cols C nblocks
     _P, _P, _P, _P,               # wstem wblk lns out
-    _I, _P])                      # games per CTA, stream
+    _I, _I, _I, _I, _P])          # games per CTA, m-tiles per warp,
+#                                   stages, taps per stage, stream
 
 KERNELS = [K_TOWER]
 
@@ -227,11 +277,28 @@ def resnet_tower(x: torch.Tensor, packed: dict) -> torch.Tensor:
     check(packed["wstem"], torch.bfloat16, (C, 9 * CIN_STEM), dev, "wstem")
     check(packed["wblk"], torch.bfloat16, (nb, 2, C, 9 * C), dev, "wblk")
     check(packed["lns"], torch.float32, (1 + 2 * nb, 2, C), dev, "lns")
+    pl = plan(B, RC, C, sm_count(dev.index if dev.index is not None
+                                 else torch.cuda.current_device()))
     out = torch.empty((B, RC, C), dtype=torch.float32, device=dev)
     K_TOWER(x.data_ptr(), B, F, R, Cc, C, nb, packed["wstem"].data_ptr(),
             packed["wblk"].data_ptr(), packed["lns"].data_ptr(),
-            out.data_ptr(), plan_games(B, RC, C), stream(x))
+            out.data_ptr(), pl["games"], pl["mt"], pl["stages"],
+            pl["taps_per_stage"], stream(x))
     return out
+
+
+def geometry(B: int, RC: int, C: int) -> dict:
+    """:func:`plan` on the current CUDA device, checked against the
+    kernel's own shared-memory layout (needs the CUDA build)."""
+    pl = plan(B, RC, C, sm_count(torch.cuda.current_device()))
+    lib = load("resnet_tower.cu")
+    fn = lib.az_resnet_tower_smem
+    fn.argtypes = [_I] * 6
+    got = fn(pl["games"], RC, C, pl["mt"], pl["stages"], pl["taps_per_stage"])
+    if got != pl["smem_bytes"]:
+        raise RuntimeError(f"tower geometry: the kernel reports {got} bytes, "
+                           f"the planner {pl}")
+    return pl
 
 
 def make_fused_apply(geometry, channels: int, blocks: int):

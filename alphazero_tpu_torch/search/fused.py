@@ -42,6 +42,7 @@ stated tolerance.
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -51,6 +52,7 @@ from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import _make_line_matrix, line_cells
 from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
+from alphazero_tpu_torch.ops.build import load as load_lib
 from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
                                              dirichlet_noise, first_argmax,
                                              root_prior, search_inputs)
@@ -183,6 +185,77 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# launch geometry of az_dense_forward (csrc/dense_forward.cu)
+DENSE_COLS = 64          # output columns of each layer per CTA
+DENSE_MAX_CLUSTER = 8    # CTAs per cluster: the portable limit
+DENSE_MAX_ACTIONS = 32
+DENSE_TILES = (16, 32, 48)   # games per tile the kernel takes
+DENSE_WARPS = 8
+SMEM_LIMIT = 232_448     # dynamic shared memory one CTA may use on sm_90
+
+
+def dense_smem_bytes(games: int, D: int, kp: int, DV: int, A: int) -> int:
+    """Shared memory of one CTA (as ``csrc/dense_forward.cu:layout``): two
+    weight stages of 64 rows × max(Kp, D) bf16, the bf16 input rows of the
+    tile's games and, where it fits, a second such buffer for fc1's output,
+    the CTA's 64 float32 residual columns, the LayerNorm partials of the
+    cluster, and the heads' partial sums (from each of the D/64 CTAs, for
+    the ⌈games / (D/64)⌉ games this CTA finishes)."""
+    cs = D // DENSE_COLS
+    lda = max(kp, D) + 8
+    stage = DENSE_COLS * lda * 2
+    rows = games * lda * 2
+    heads = cs * -(-games // cs) * (A + 1) * 4
+    rest = (games * (DENSE_COLS + 8) * 4 + cs * games * 8
+            + DENSE_WARPS * games * 4 + -(-heads // 16) * 16)
+    with_ya = 2 * stage + 2 * rows + rest <= SMEM_LIMIT
+    return 2 * stage + (2 if with_ya else 1) * rows + rest
+
+
+@functools.lru_cache(maxsize=None)
+def dense_tiles(D: int, kp: int, DV: int, A: int) -> tuple:
+    """The games per tile that fit this network's widths, smallest first.
+    Raises ``ValueError`` for widths the kernel does not take."""
+    cs = D // DENSE_COLS
+    if D % DENSE_COLS or not 1 <= cs <= DENSE_MAX_CLUSTER:
+        raise ValueError(f"the dense forward kernel takes widths a multiple "
+                         f"of {DENSE_COLS} up to "
+                         f"{DENSE_COLS * DENSE_MAX_CLUSTER}, not {D}")
+    nv = DV // cs
+    if DV % cs or nv % 8 or nv > DENSE_COLS:
+        raise ValueError(f"value_fc width {DV} does not split into "
+                         f"{cs} slices of a multiple of 8 up to {DENSE_COLS}")
+    if kp % 16 or not 1 <= A <= DENSE_MAX_ACTIONS:
+        raise ValueError(f"unsupported widths Kp={kp} A={A}")
+    fits = tuple(g for g in DENSE_TILES
+                 if dense_smem_bytes(g, D, kp, DV, A) <= SMEM_LIMIT)
+    if not fits:
+        raise ValueError(f"width {D} needs "
+                         f"{dense_smem_bytes(16, D, kp, DV, A)} bytes of "
+                         f"shared memory per CTA, over the {SMEM_LIMIT} a "
+                         f"CTA may use")
+    return fits
+
+
+def dense_plan(B: int, D: int, kp: int, DV: int, A: int, slots: dict) -> dict:
+    """Launch geometry of ``az_dense_forward``: a cluster of D/64 CTAs per
+    tile of games, each CTA 64 output columns of every layer.  ``slots``
+    maps games per tile to the clusters of that shape the card holds at
+    once; the plan takes the smallest tile whose clusters all fit in one
+    wave, else the largest (the fewest waves).  Raises ``ValueError`` for
+    widths the kernel does not take."""
+    if B < 1:
+        raise ValueError(f"batch {B} < 1")
+    fits = dense_tiles(D, kp, DV, A)
+    games = next((g for g in fits if -(-B // g) <= slots[g]), fits[-1])
+    tiles = -(-B // games)
+    cs = D // DENSE_COLS
+    return {"games_per_tile": games, "cluster": cs, "tiles": tiles,
+            "ctas": tiles * cs,
+            "smem_bytes": dense_smem_bytes(games, D, kp, DV, A),
+            "waves": -(-tiles // slots[games])}
+
+
 K_DENSE = CudaKernel("dense_forward.cu", "az_dense_forward", [
     _P, _I, _I, _I,              # obs, B, FRC, RC
     _P, _I, _I,                  # lines, L, win_len
@@ -192,7 +265,46 @@ K_DENSE = CudaKernel("dense_forward.cu", "az_dense_forward", [
     _P, _P, _I,                  # pol_w, pol_b, A
     _P, _P, _I,                  # vfc_w, vfc_b, DV
     _P, _P, _I,                  # vh_w, vh_b, D
-    _P, _P, _P])                 # probs, value, stream
+    _P, _P, _I, _P])             # probs, value, games per tile, stream
+
+
+def _dense_widths(packed: dict):
+    D, kp = packed["stem_w"].shape
+    return D, kp, packed["vfc_w"].shape[0], packed["pol_w"].shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def dense_slots(D: int, kp: int, DV: int, A: int) -> dict:
+    """Games per tile → how many clusters of that shape the card holds at
+    once, as the kernel reports it (``cudaOccupancyMaxActiveClusters``;
+    needs CUDA).  Raises if the card holds none."""
+    lib = load_lib("dense_forward.cu")
+    lib.az_dense_geometry.argtypes = [_I] * 5 + [_P]
+    slots = {}
+    for games in dense_tiles(D, kp, DV, A):
+        out = (ctypes.c_int * 3)()
+        rc = lib.az_dense_geometry(games, D, kp, DV, A, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"az_dense_geometry: CUDA error {rc} "
+                               f"({lib.az_error_string(rc).decode()})")
+        if (out[0], out[1]) != (dense_smem_bytes(games, D, kp, DV, A),
+                                D // DENSE_COLS):
+            raise RuntimeError(f"dense geometry: the kernel reports "
+                               f"{list(out[:2])} at {games} games per tile")
+        if out[2] < 1:
+            raise RuntimeError(f"the card holds no cluster of {D // 64} "
+                               f"CTAs with {out[0]} bytes of shared memory")
+        slots[games] = out[2]
+    return slots
+
+
+def dense_geometry(B: int, packed: dict) -> dict:
+    """The launch geometry :func:`dense_forward` uses at batch ``B`` on
+    this card, with the clusters it holds at once (needs CUDA)."""
+    widths = _dense_widths(packed)
+    slots = dense_slots(*widths)
+    plan = dense_plan(B, *widths, slots)
+    return dict(plan, max_active_clusters=slots[plan["games_per_tile"]])
 
 
 def dense_forward(obs: torch.Tensor, packed: dict):
@@ -202,13 +314,11 @@ def dense_forward(obs: torch.Tensor, packed: dict):
         return dense_forward_reference(obs, packed)
     dev = obs.device
     B, FRC = obs.shape
-    D, kp = packed["stem_w"].shape
+    D, kp, DV, A = _dense_widths(packed)
     nb = packed["w1"].shape[0]
-    A = packed["pol_w"].shape[0]
-    DV = packed["vfc_w"].shape[0]
     L, K = packed["lines"].shape
-    if D % 8 or DV % 8 or kp % 16 or A > 32:
-        raise ValueError(f"unsupported widths D={D} DV={DV} Kp={kp} A={A}")
+    games = dense_plan(B, D, kp, DV, A,
+                       dense_slots(D, kp, DV, A))["games_per_tile"]
     bf, f = torch.bfloat16, torch.float32
     check(obs, f, (B, FRC), dev, "obs")
     for name, dt, shape in (
@@ -234,7 +344,7 @@ def dense_forward(obs: torch.Tensor, packed: dict):
             p["pol_w"].data_ptr(), p["pol_b"].data_ptr(), A,
             p["vfc_w"].data_ptr(), p["vfc_b"].data_ptr(), DV,
             p["vh_w"].data_ptr(), p["vh_b"].data_ptr(), D,
-            probs.data_ptr(), value.data_ptr(), stream(obs))
+            probs.data_ptr(), value.data_ptr(), games, stream(obs))
     return probs, value
 
 

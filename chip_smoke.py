@@ -7,7 +7,11 @@ Phases (any failure exits non-zero before the final line):
      the card's name and power limit;
   2. the dense-forward kernel against its plain PyTorch version at B=512,
      width 512, 2 blocks, seeded random weights, observations from random
-     playouts: error and time of both;
+     playouts: error and time of both; then at B=512, 128 and the ragged
+     1, 17, 129: error, launch geometry (CTAs, cluster, games per tile,
+     shared memory, clusters the card holds), and the device time of the
+     kernel and of the eager module (make_eval_fn): CUDA events around
+     calls queued behind a sleep kernel (``device_ms``);
   3. the whole-chunk search kernels against the plain chunk, bit for bit,
      under the exact stub evaluator at B=512, S=200, M=4 with Dirichlet
      noise and temperature sampling (both fed the same noise and uniforms);
@@ -54,8 +58,10 @@ Phases (any failure exits non-zero before the final line):
      trainer, ``eval --vs self --games 32`` and ``agent_move`` for a
      connect4 dense agent and a tictactoe ResNet; then the tower kernel
      against its plain version on the run's self-play snapshot (B=512 and
-     B=128) and at gomoku9 128x8, B=256, with times, the eager forward's
-     time and the bound; one self-play move profiled under the fused and the
+     B=128, and the ragged 1, 17, 129), at gomoku9 128x8, B=256, and at
+     the leaf-batched 8 x 512, with launch geometry, times, the device time
+     of kernel and eager forward (``device_ms``), and the bound; one
+     self-play move profiled under the fused and the
      eager evaluator, and one gate move under the fused evaluator; one
      leaf-batched search (K=8) on the fused evaluator;
 then the main-path summaries, one JSON line of all eleven kernels, the card
@@ -64,6 +70,7 @@ line, and the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -245,6 +252,63 @@ def fresh_ms(fn, states):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (len(states) - 1)
+
+
+def device_ms(runs):
+    """Device time per call of each ``(name, fn, reps)`` of ``runs``: CUDA
+    events around ``reps`` calls queued behind a sleep kernel.  The host
+    issues every call while the card sleeps, so the calls run back to back
+    and the events time the card's work, not the host's.  That holds only
+    if the start event is still pending when the last call has been
+    issued; the script checks it, retries with longer sleeps and, failing
+    that, says so and gives None.  Returns ``{name: ms per call}``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / start.elapsed_time(end)
+    out = {}
+    for name, fn, reps in runs:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out[name] = None
+        for attempt in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 2)
+                                  * 4 ** attempt))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            ahead = not start.query()
+            torch.cuda.synchronize()
+            if ahead:
+                out[name] = start.elapsed_time(end) / reps
+                break
+        if out[name] is None:
+            log(f"[device] {name}: not measured (the card reached the "
+                f"calls before the host had issued them, three times)")
+    return out
+
+
+@contextlib.contextmanager
+def planned(module, name, plan):
+    """Route a wrapper's launch planner ``module.name`` to ``plan`` for the
+    enclosed calls: to time geometries the planner did not pick."""
+    old = getattr(module, name)
+    setattr(module, name, plan)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def max_diff(a, b):
@@ -842,12 +906,38 @@ def fused_resnet_phase(gen, dev):
     params9 = {k: v.to(dev) for k, v in init_params(
         model9, torch.Generator().manual_seed(0)).items()}
     st9 = random_positions(env9, g9.train.selfplay_batch, gen, dev)
+    # self-play's B, the gate's, gomoku9's, and the leaf-batched K·B of
+    # part d (K=8)
+    lb_pos = random_positions(env, 8 * B, torch.Generator(
+        device=dev).manual_seed(8 * B), dev)
     cases = [("connect4-resnet", snap, pk, tr.model, tr.params_best),
              ("connect4-resnet", snap[:cfg.train.gate_games // 2].contiguous(),
               pk, tr.model, tr.params_best),
              ("gomoku9", env9.observation(st9).contiguous(),
-              rt.pack(params9, g9.model.blocks), model9, params9)]
+              rt.pack(params9, g9.model.blocks), model9, params9),
+             ("connect4-resnet", env.observation(lb_pos).contiguous(), pk,
+              tr.model, tr.params_best)]
+    ragged = [("connect4-resnet", snap[:n].contiguous(), pk, tr.model,
+               tr.params_best) for n in (1, 17, 129)]
     tower = {}
+    for pname, x, packed, model, params in ragged:
+        Bx, F, R, Cc = x.shape
+        lk, vk = rt.heads(rt.resnet_tower(x, packed), packed)
+        lp, vp = rt.heads(rt.tower_reference(x, packed), packed)
+        torch.cuda.synchronize()
+        err = torch.cat([(lk - lp).abs().reshape(-1), (vk - vp).abs()])
+        e_max, e_med = float(err.max()), float(err.median())
+        t_max, t_med = TOL_TOWER[pname]
+        ok = bool(torch.isfinite(err).all()) and e_max <= t_max \
+            and e_med <= t_med
+        geo = rt.geometry(Bx, R * Cc, model.channels)
+        log(f"[tower] {pname} B={Bx} (ragged): max err {e_max:.3e}, median "
+            f"{e_med:.3e} -> {'ok' if ok else 'FAIL'}; geometry {geo}")
+        if not ok:
+            fail(f"az_resnet_tower disagrees with its plain version "
+                 f"({pname} B={Bx})")
+        tower[f"{pname} B={Bx}"] = dict(max_abs_err=e_max,
+                                        median_abs_err=e_med, geometry=geo)
     for pname, x, packed, model, params in cases:
         Bx, F, R, Cc = x.shape
         RC, C, nb = R * Cc, model.channels, model.blocks
@@ -867,6 +957,35 @@ def fused_resnet_phase(gen, dev):
                                k_reps=20, p_reps=3)
         eager = make_eval_fn(model, params)
         ms_e = cuda_ms(lambda: eager(x), 5)
+        geo = rt.geometry(Bx, RC, C)
+        # device times: the kernel, the eager forward, and the planner's
+        # choice against other rings and tiles that fit; at connect4's K·B
+        # also what the planner took before it preferred whole-conv stages
+        # beyond one wave (the most games per CTA: 10, on single taps)
+        runs = [("kernel", lambda: rt.resnet_tower(x, packed), 10),
+                ("eager", lambda: eager(x), 3)]
+        alts = [dict(geo, games=games, taps_per_stage=tps, stages=stages)
+                for games in sorted({geo["games"], max(1, geo["games"] // 2)})
+                for tps, stages in ((9, 2), (3, 3), (1, 2))]
+        if pname == "connect4-resnet" and Bx == 8 * B:
+            alts.append(dict(geo, games=10, mt=2, taps_per_stage=1, stages=3))
+        for alt in alts:
+            if rt.smem_bytes(alt["games"], RC, C, alt["mt"], alt["stages"],
+                             alt["taps_per_stage"]) > rt.SMEM_LIMIT:
+                continue
+
+            def run_alt(alt=alt):
+                with planned(rt, "plan", lambda *a: alt):
+                    rt.resnet_tower(x, packed)
+
+            runs.append((f"games={alt['games']} mt={alt['mt']} "
+                         f"taps/stage={alt['taps_per_stage']} "
+                         f"stages={alt['stages']}", run_alt, 5))
+        dev_t = device_ms(runs)
+        k_us = None if dev_t["kernel"] is None else dev_t["kernel"] * 1e3
+        e_dev = dev_t["eager"]
+        alts = {name: None if dev_t[name] is None else dev_t[name] * 1e3
+                for name, _, _ in runs[2:]}
         ops = 2.0 * Bx * RC * (9 * F * C + nb * 2 * 9 * C * C)
         moved = (nbytes(x) + 2 * (9 * F * C + nb * 2 * 9 * C * C)
                  + nbytes(packed["lns"]) + Bx * RC * C * 4)
@@ -877,13 +996,16 @@ def fused_resnet_phase(gen, dev):
             f"{f_max:.3e} -> {'ok' if ok else 'FAIL'}; per call: kernel "
             f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, eager F.conv2d forward "
             f"(make_eval_fn) {ms_e:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
-            f"{ops / 1e9:.3f} GFLOP bf16); {rt.plan_games(Bx, RC, C)} "
-            f"games per CTA")
+            f"{ops / 1e9:.3f} GFLOP bf16); device: kernel {k_us} us per "
+            f"launch, eager forward {e_dev} ms per call; geometry {geo}; "
+            f"device us per launch of the alternatives {alts}")
         if not ok:
             fail(f"az_resnet_tower disagrees with its plain version ({tag})")
         tower[tag] = dict(max_abs_err=e_max, median_abs_err=e_med, ms=ms_k,
                           plain_ms=ms_p, eager_forward_ms=ms_e, bound_ms=b_ms,
-                          bound_by=b_by)
+                          bound_by=b_by, device_us=k_us,
+                          eager_device_ms=e_dev, geometry=geo,
+                          device_us_by_geometry=alts)
 
     # ---- c. one self-play move, fused and eager evaluator, profiled
     mcfg_sp = cfg.mcts
@@ -1072,6 +1194,67 @@ def main():
         f"{ms_p:.4f} ms, bound "
         f"{b_ms:.5f} ms ({b_by}; {bf16_ops / 1e9:.3f} GFLOP bf16, "
         f"{wbytes / 1e6:.2f} MB weights)")
+    # self-play's and the gate's batches and ragged ones: error, launch
+    # geometry, and the device time of the kernel and of the eager module
+    # (models/dense.py through make_eval_fn), both by device_ms
+    eager_dense = make_eval_fn(model, params)
+    by_batch = {}
+    for Bx in (B, cfg.train.gate_games // 2, 1, 17, 129):
+        ox = env.observation(random_positions(env, Bx, gen, dev))
+        flat = ox.reshape(Bx, -1).contiguous()
+        pk, vk = fused.dense_forward(flat, packed)
+        pp, vp = fused.dense_forward_reference(flat, packed)
+        torch.cuda.synchronize()
+        err = torch.cat([(pk - pp).abs().reshape(-1), (vk - vp).abs()])
+        e_max, share = float(err.max()), float((err <= 1e-3).float().mean())
+        ok = (bool(torch.isfinite(err).all()) and e_max <= TOL_FWD_MAX
+              and share >= TOL_FWD_FRAC)
+        geo = fused.dense_geometry(Bx, packed)
+        # device times: the kernel, the eager module; at the main path's
+        # batches also the other tiles and the launch with 0 and 1 of the 2
+        # blocks (the fixed cost: input, stem, final LayerNorm, heads; and
+        # the cost per block)
+        runs = [("kernel", lambda: fused.dense_forward(flat, packed), 20),
+                ("eager", lambda: eager_dense(ox), 5)]
+        if Bx in (B, cfg.train.gate_games // 2):
+            for tg in fused.dense_tiles(*fused._dense_widths(packed)):
+                def run_tile(tg=tg):
+                    with planned(fused, "dense_plan",
+                                 lambda *a: {"games_per_tile": tg}):
+                        fused.dense_forward(flat, packed)
+
+                runs.append((f"tile {tg}", run_tile, 10))
+            for nb_cut in range(model.blocks):
+                cut = dict(packed, **{k: packed[k][:nb_cut].contiguous()
+                                      for k in ("ln_s", "ln_b", "w1", "b1",
+                                                "w2", "b2")})
+                runs.append((f"blocks {nb_cut}",
+                             lambda cut=cut: fused.dense_forward(flat, cut),
+                             10))
+        dev_t = device_ms(runs)
+
+        def kern(name):
+            return None if dev_t[name] is None else dev_t[name] * 1e3
+
+        k_us, e_dev = kern("kernel"), dev_t["eager"]
+        alts = {int(n[5:]): kern(n) for n, _, _ in runs
+                if n.startswith("tile ")}
+        depth = {int(n[7:]): kern(n) for n, _, _ in runs
+                 if n.startswith("blocks ")}
+        if depth:
+            depth[model.blocks] = k_us
+        log(f"[forward] B={Bx}: max abs err {e_max:.3e}, share within 1e-3 "
+            f"{share:.4f} -> {'ok' if ok else 'FAIL'}; geometry {geo}; "
+            f"device per launch {k_us} us; eager module device "
+            f"{e_dev} ms per call; device us per launch by games per tile "
+            f"{alts}, by blocks {depth}")
+        if not ok:
+            fail(f"forward kernel disagrees with its plain version at B={Bx}")
+        by_batch[str(Bx)] = dict(max_abs_err=e_max, share_within_1e3=share,
+                                 device_us=k_us, eager_device_ms=e_dev,
+                                 geometry=geo, device_us_by_tile=alts,
+                                 device_us_by_blocks=depth)
+    summary["az_dense_forward"]["by_batch"] = by_batch
 
     # ---- 3. search kernels vs the plain chunk, bitwise (exact stub)
     M3 = 4

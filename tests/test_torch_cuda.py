@@ -37,22 +37,46 @@ def _positions(env, B, seed, dev):
     return boards, players
 
 
-def test_dense_forward_kernel_close_to_plain(dev):
+@pytest.mark.parametrize("B", [1, 17, 129, 512])
+@pytest.mark.parametrize("width", [64, 128, 192, 448, 512])
+def test_dense_forward_kernel_close_to_plain(dev, width, B):
     """bf16 products with float32 sums in another order: outputs agree to
-    1e-2 at most and 99% of them to 1e-3."""
+    1e-2 at most and 99% of them to 1e-3, at every width the presets and
+    tests use (clusters of 1, 2 and 8 CTAs), at clusters of 3 and 7 CTAs
+    that do not divide a tile, and at ragged batches."""
     env = make_env("connect4")
-    model = build_model(ModelConfig(family="dense", width=128, blocks=2),
+    model = build_model(ModelConfig(family="dense", width=width, blocks=2),
                         env).to(dev)
     params = {k: v.to(dev) for k, v in init_params(
         model, torch.Generator().manual_seed(0)).items()}
     packed = fused.pack_dense_params(model, params, dev)
-    boards, players = _positions(env, 40, 1, dev)          # ragged last tile
-    obs = env.observation_from_board(boards, players).reshape(40, -1)
+    boards, players = _positions(env, B, 1, dev)
+    obs = env.observation_from_board(boards, players).reshape(B, -1)
+    n0 = fused.K_DENSE.launches
     pk, vk = fused.dense_forward(obs, packed)
+    assert fused.K_DENSE.launches == n0 + 1
     pp, vp = fused.dense_forward_reference(obs, packed)
     err = torch.cat([(pk - pp).abs().reshape(-1), (vk - vp).abs()])
+    assert bool(torch.isfinite(err).all())
     assert float(err.max()) <= 1e-2
     assert float((err <= 1e-3).float().mean()) >= 0.99
+    geo = fused.dense_geometry(B, packed)
+    assert geo["cluster"] == width // 64 and geo["max_active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("width", [96, 1024])
+def test_dense_forward_kernel_raises_for_unsupported_width(dev, width):
+    env = make_env("connect4")
+    model = build_model(ModelConfig(family="dense", width=width, blocks=1),
+                        env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    packed = fused.pack_dense_params(model, params, dev)
+    obs = torch.zeros((4, 3 * 42), device=dev)
+    n0 = fused.K_DENSE.launches
+    with pytest.raises(ValueError):
+        fused.dense_forward(obs, packed)
+    assert fused.K_DENSE.launches == n0
 
 
 @pytest.mark.parametrize("dirichlet,formula", [(False, "reference"),
@@ -305,10 +329,11 @@ def test_sim_step_and_flush_one_launch_vs_plain(dev):
         assert torch.equal(getattr(tree, f), getattr(snap[0], f)), f
 
 
-@pytest.mark.parametrize("game,channels,blocks,B", [
-    ("connect4", 64, 4, 40),       # the connect4-resnet tower, ragged tile
-    ("tictactoe", 32, 2, 17),
-    ("gomoku9", 128, 2, 3)])
+@pytest.mark.parametrize("B", [1, 17, 129, 512])
+@pytest.mark.parametrize("game,channels,blocks", [
+    ("connect4", 64, 4),           # the connect4-resnet tower
+    ("tictactoe", 32, 2),
+    ("gomoku9", 128, 2)])
 def test_resnet_tower_kernel_close_to_plain(dev, game, channels, blocks, B):
     """az_resnet_tower against tower_reference, heads on both: bf16 reads
     of float32 sums taken in another order, so an activation near a bf16
@@ -331,5 +356,22 @@ def test_resnet_tower_kernel_close_to_plain(dev, game, channels, blocks, B):
     err = torch.cat([(g - w).abs().reshape(-1) for g, w in zip(got, want)])
     assert bool(torch.isfinite(err).all())
     assert float(err.max()) <= 5e-2 and float(err.median()) <= 1e-3
+    rt.geometry(B, env.rows * env.cols, channels)
     with pytest.raises(ValueError):
         rt.resnet_tower(obs.double(), packed)
+
+
+@pytest.mark.parametrize("channels", [24, 192])
+def test_resnet_tower_kernel_raises_for_unsupported_channels(dev, channels):
+    from alphazero_tpu_torch.ops import resnet_tower as rt
+    env = make_env("connect4")
+    model = build_model(ModelConfig(family="resnet", channels=channels,
+                                    blocks=1), env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    packed = rt.pack(params, 1)
+    obs = torch.zeros((2, env.feature_dim, env.rows, env.cols), device=dev)
+    n0 = rt.K_TOWER.launches
+    with pytest.raises(ValueError, match="channels"):
+        rt.resnet_tower(obs, packed)
+    assert rt.K_TOWER.launches == n0

@@ -118,3 +118,88 @@ def test_dense_forward_reference_matches_pallas_forward(width, blocks):
     # the dispatching wrapper takes the plain version for CPU tensors
     p2, v2 = dense_forward(torch.as_tensor(obs), packed)
     assert torch.equal(p2, p) and torch.equal(v2, v)
+
+
+# --- launch geometry of az_dense_forward (csrc/dense_forward.cu), on the
+# CPU: the planner for every width the port and its tests use and every
+# batch from 1 to 512 (self-play 512, the gate 128, eval 16, agent_move 1)
+
+from alphazero_tpu_torch.search import fused  # noqa: E402
+
+# clusters of 8 CTAs an H100 SXM holds at once at these shared-memory sizes
+# (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3: 15), and a card
+# with more
+H100_SLOTS = {16: 15, 32: 15, 48: 15}
+
+
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 320, 384, 448, 512])
+@pytest.mark.parametrize("slots", [H100_SLOTS, {16: 40, 32: 40, 48: 40}])
+def test_dense_plan_valid_for_every_batch(width, slots):
+    """Every width a multiple of 64 up to 512, also where the cluster of
+    width/64 CTAs does not divide the tile (3, 5, 6, 7 CTAs)."""
+    kp, DV, A = 272, width // 4, 7           # connect4: 126 + 2·69 → 272
+    for B in range(1, 513):
+        pl = fused.dense_plan(B, width, kp, DV, A, slots)
+        g, cs = pl["games_per_tile"], pl["cluster"]
+        assert g in fused.DENSE_TILES and cs == width // 64 <= 8
+        assert pl["tiles"] == -(-B // g) and pl["ctas"] == pl["tiles"] * cs
+        assert pl["smem_bytes"] == fused.dense_smem_bytes(
+            g, width, kp, DV, A) <= fused.SMEM_LIMIT
+        # the smallest tile whose clusters fit in one wave, else the largest
+        fits = [t for t in fused.dense_tiles(width, kp, DV, A)
+                if -(-B // t) <= slots[t]]
+        assert g == (fits[0] if fits else 48)
+        assert pl["waves"] == -(-pl["tiles"] // slots[g])
+
+
+def test_dense_plan_main_path_shapes():
+    """connect4 at D=512: the gate's B=128 in 8 clusters of 16 games (64
+    CTAs), self-play's B=512 in 11 clusters of 48 (one wave of the 15 the
+    card holds); 16- and 32-game tiles keep a buffer for fc1's output."""
+    p128 = fused.dense_plan(128, 512, 272, 128, 7, H100_SLOTS)
+    p512 = fused.dense_plan(512, 512, 272, 128, 7, H100_SLOTS)
+    assert (p128["games_per_tile"], p128["ctas"]) == (16, 64)
+    assert (p512["games_per_tile"], p512["ctas"], p512["waves"]) == (48, 88, 1)
+    assert fused.dense_smem_bytes(16, 512, 272, 128, 7) == 173_056
+    assert fused.dense_smem_bytes(32, 512, 272, 128, 7) == 212_992
+    assert fused.dense_smem_bytes(48, 512, 272, 128, 7) == 203_008
+
+
+@pytest.mark.parametrize("width", [192, 320, 384, 448])
+@pytest.mark.parametrize("games", fused.DENSE_TILES)
+def test_dense_heads_slots_cover_a_tile_the_cluster_does_not_divide(width,
+                                                                    games):
+    """The heads' partial sums of game g go from rank q to slot [q][g // cs]
+    of rank g mod cs, which finishes it (``csrc/dense_forward.cu``).  With
+    ⌈games / cs⌉ slots per rank every (rank, game) pair has a slot of its
+    own and every game is finished once."""
+    cs = width // 64
+    per = -(-games // cs)
+    slots = {(g % cs, q * per + g // cs)
+             for q in range(cs) for g in range(games)}
+    assert len(slots) == cs * games
+    assert all(slot < cs * per for _, slot in slots)
+    finished = sorted(i * cs + r for r in range(cs) for i in range(per)
+                      if i * cs + r < games)
+    assert finished == list(range(games))
+
+
+def test_dense_smem_counts_the_heads_slots_of_every_rank():
+    """At D=192 (3 CTAs) a 16-game tile has 6 heads slots per rank: 3 × 6 ×
+    (7 + 1) float32 = 576 bytes, not 16 × 8 × 4 = 512."""
+    # two weight stages 2 × 64 × 280 bf16, input and fc1 rows 2 × 16 × 280
+    # bf16, residual 16 × 72 float32, LayerNorm partials 3 × 16 × 2 float32,
+    # value partials 8 × 16 float32, heads 576
+    assert fused.dense_smem_bytes(16, 192, 272, 48, 7) == (
+        2 * 35_840 + 2 * 8_960 + 4_608 + 384 + 512 + 576)
+
+
+@pytest.mark.parametrize("D,kp,DV,A", [
+    (96, 272, 24, 7),        # not a multiple of 64
+    (1024, 272, 256, 7),     # a cluster of 16
+    (512, 272, 128, 81),     # gomoku9-dense's 81 actions
+    (512, 264, 128, 7),      # input width not padded to 16
+    (128, 272, 20, 7)])      # value_fc slices not a multiple of 8
+def test_dense_plan_refuses_widths_the_kernel_does_not_take(D, kp, DV, A):
+    with pytest.raises(ValueError):
+        fused.dense_plan(16, D, kp, DV, A, H100_SLOTS)

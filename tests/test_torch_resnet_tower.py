@@ -139,3 +139,75 @@ def test_make_fused_apply_raises_for_a_tower_the_kernel_does_not_take():
         rt.make_fused_apply(env, 192, 2)
     with pytest.raises(ValueError, match="shared memory"):
         rt.make_fused_apply(make_tenv("gomoku15"), 128, 2)
+
+
+# --- launch geometry of az_resnet_tower (csrc/resnet_tower.cu), on the CPU:
+# the planner's shapes for every batch the port gives the kernel
+
+FUSED_TOWERS = [("connect4-resnet", 6 * 7, 64), ("gomoku9", 9 * 9, 128),
+                ("tictactoe", 3 * 3, 32)]
+
+
+def _fits(games, RC, C, rings=rt.RINGS):
+    mt = 1 if rt.padded_rows(games, RC, 1) <= rt.WARPS * 16 else 2
+    return (rt.padded_rows(games, RC, mt) <= rt.WARPS * 16 * mt
+            and (mt == 1 or C <= 64)
+            and any(rt.smem_bytes(games, RC, C, mt, s, t) <= rt.SMEM_LIMIT
+                    for t, s in rings))
+
+
+@pytest.mark.parametrize("sms", [132, 114])       # H100 SXM, H100 PCIe
+@pytest.mark.parametrize("name,RC,C", FUSED_TOWERS)
+def test_tower_plan_valid_for_every_batch(name, RC, C, sms):
+    """B = 1..512 and the leaf-batched K·B: each CTA's shared memory within
+    the 232,448 bytes, every game covered once, each warp at most one item
+    of mt m-tiles; one wave of ≤ ``sms`` CTAs where some ring fits the
+    games that takes, else the ring with the most taps per stage that fits
+    a game."""
+    for B in list(range(1, 513)) + [8 * 512]:
+        pl = rt.plan(B, RC, C, sms)
+        g, mt = pl["games"], pl["mt"]
+        assert pl["smem_bytes"] == rt.smem_bytes(
+            g, RC, C, mt, pl["stages"], pl["taps_per_stage"]) <= rt.SMEM_LIMIT
+        assert pl["ctas"] == -(-B // g) and (pl["ctas"] - 1) * g < B
+        assert mt in (1, 2) and (mt == 1 or C <= 64)
+        assert rt.padded_rows(g, RC, mt) <= rt.WARPS * 16 * mt
+        assert (pl["taps_per_stage"], pl["stages"]) in rt.RINGS
+        one_wave = -(-B // sms)
+        if _fits(one_wave, RC, C):
+            assert g == one_wave and pl["ctas"] <= sms
+        else:
+            assert pl["ctas"] > sms
+            taps = max(t for t, s in rt.RINGS if _fits(1, RC, C, [(t, s)]))
+            assert pl["taps_per_stage"] == taps
+            assert not _fits(g + 1, RC, C,
+                             [r for r in rt.RINGS if r[0] == taps])
+
+
+def test_tower_plan_main_path_shapes():
+    """The shapes PERF.md reports: whole convs staged at connect4-resnet
+    (4 games per CTA at B=512, 1 at the gate's 128, 4 again at the
+    leaf-batched 8 × 512 in 1,024 CTAs, not 10 on single taps), single
+    taps at gomoku9's 128 channels (2 games per CTA at B=256); 128 CTAs on
+    an H100 SXM's 132 SMs."""
+    assert rt.plan(512, 42, 64, 132) == {
+        "games": 4, "mt": 1, "stages": 2, "taps_per_stage": 9,
+        "smem_bytes": 226_800, "ctas": 128}
+    assert rt.plan(128, 42, 64, 132)["games"] == 1
+    assert rt.plan(128, 42, 64, 132)["taps_per_stage"] == 9
+    assert rt.plan(4096, 42, 64, 132) == dict(rt.plan(512, 42, 64, 132),
+                                              ctas=1024)
+    g9 = rt.plan(256, 81, 128, 132)
+    assert (g9["games"], g9["taps_per_stage"], g9["ctas"]) == (2, 1, 128)
+    # a card of 114 SMs: one wave at B=512 takes 5 games per CTA, which fit
+    # beside 3-tap stages only
+    p114 = rt.plan(512, 42, 64, 114)
+    assert (p114["games"], p114["taps_per_stage"], p114["ctas"]) == (5, 3, 103)
+
+
+@pytest.mark.parametrize("rows,cols,F,C,match", [
+    (6, 7, 3, 192, "channels"), (6, 7, 3, 24, "channels"),
+    (6, 7, 17, 64, "input planes"), (15, 15, 2, 128, "shared memory")])
+def test_tower_shapes_the_kernel_refuses(rows, cols, F, C, match):
+    with pytest.raises(ValueError, match=match):
+        rt.check_shape(rows, cols, F, C)
