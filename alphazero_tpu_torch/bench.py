@@ -2,7 +2,8 @@
 
 Counterpart of the repository's root ``bench.py`` (which benchmarks the JAX
 package).  Run ``python -m alphazero_tpu_torch bench``.  It prints one JSON
-line per preset (tictactoe, connect4, connect4-resnet, gomoku9, gomoku15)
+line per preset (connect4, tictactoe, connect4-resnet, gomoku9-dense,
+gomoku9, gomoku15)
 with env-steps/s (the median of 3 timed windows and their spread), sims/s
 and the model's forward FLOP/s, each line naming the card, then the
 headline line last:
@@ -121,6 +122,7 @@ def main(fused_resnet: bool = False, device="cuda"):
     secondary = [
         ("tictactoe", 32, 3),
         ("connect4-resnet", 8, 3),
+        ("gomoku9-dense", 8, 3),
         ("gomoku9", 2, 2),
         ("gomoku15", 1, 2),
     ]

@@ -72,8 +72,10 @@
 // mbarrier arrivals instead of whole-cluster barriers).
 //
 // Widths: D a multiple of 64 up to 512 (8 CTAs per cluster, the portable
-// limit), DV/CS a multiple of 8 up to 64, Kp a multiple of 16, A ≤ 32; the
-// wrapper raises for the rest.
+// limit), DV/CS a multiple of 8 up to 64, Kp a multiple of 16, A ≤ 128 (81
+// for gomoku9: the heads' partials [rank][g/CS][A+1] grow with A, and at
+// D=512, Kp=448 every tile still fits a CTA's shared memory); the wrapper
+// raises for the rest.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -93,7 +95,8 @@ constexpr int NTHREAD = NWARP * 32;
 constexpr int PAD = 8;        // bf16 row padding against bank conflicts
 constexpr int LDH = NC + 8;   // float32 row stride of the residual slice
 constexpr int MAX_CLUSTER = 8;
-constexpr int MAX_A = 32;
+constexpr int MAX_A = 128;    // actions: ⌈A/32⌉ ≤ 4 per lane (softmax)
+constexpr int APL = MAX_A / 32;
 constexpr int SMEM_LIMIT = 232448;
 constexpr float LN_EPS = 1e-6f;
 
@@ -473,25 +476,39 @@ __global__ void __launch_bounds__(NTHREAD) dense_forward_kernel(Args p) {
   cl.sync();   // the last access to a peer's shared memory
 
   // this rank's games, one warp each: partials added in rank order, the
-  // softmax over lanes a < A, tanh of the value
+  // softmax over actions a = lane + 32j (j < APL), the warp's max and sum
+  // taken over all of them, tanh of the value
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x >> 5; i < per; i += NWARP) {
     const int g = i * CS + rank;
     if (g >= ng) continue;
-    float lg = -INFINITY, vs = 0.0f;
-    if (lane < A) {
-      lg = __ldg(p.pol_b + lane);
-      for (int q = 0; q < CS; ++q) lg += pl[(q * per + i) * A1 + lane];
+    float lg[APL], vs = 0.0f, m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < APL; ++j) {
+      const int a = lane + 32 * j;
+      lg[j] = -INFINITY;
+      if (a < A) {
+        lg[j] = __ldg(p.pol_b + a);
+        for (int q = 0; q < CS; ++q) lg[j] += pl[(q * per + i) * A1 + a];
+      }
+      m = fmaxf(m, lg[j]);
     }
     if (lane == 0)
       for (int q = 0; q < CS; ++q) vs += pl[(q * per + i) * A1 + A];
-    float m = lg;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e = lane < A ? expf(lg - m) : 0.0f;
-    const float tot = az::warp_sum(e);
-    if (lane < A) p.probs[(size_t)(g0 + g) * A + lane] = e / tot;
+    float e[APL], s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < APL; ++j) {
+      e[j] = lane + 32 * j < A ? expf(lg[j] - m) : 0.0f;
+      s += e[j];
+    }
+    const float tot = az::warp_sum(s);
+#pragma unroll
+    for (int j = 0; j < APL; ++j)
+      if (lane + 32 * j < A)
+        p.probs[(size_t)(g0 + g) * A + lane + 32 * j] = e[j] / tot;
     if (lane == 0) p.value[g0 + g] = tanhf(vs + __ldg(p.vh_b));
   }
 }

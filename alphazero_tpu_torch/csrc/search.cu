@@ -33,6 +33,18 @@
 // device memory, ~6.6 MB at B=512, S=200, which lives in L2.  More games or
 // lanes per walk step is the way to a shorter chain, later.
 //
+// Games: the move rules (envs/core.py: Env.rules) are a template parameter
+// of the kernels that place a stone or build a legal mask (az_root_init,
+// az_descend_leaf, az_move_tail), so each game's walk is compiled on its
+// own and connect4's keeps its code: gravity (a move drops down its column,
+// a column with room is legal), cells (a move fills its cell, an empty cell
+// is legal: tictactoe), neighbourhood (as cells, but an empty cell is legal
+// only next to a stone, and the centre alone on an empty board: gomoku).
+// Limits: boards of up to 256 cells (the walk's two planes are per-thread
+// arrays), 32 columns under gravity, 128 actions (the cap of the dense
+// forward's softmax, checked here too); no per-thread array is sized by the
+// actions, so A=81 (gomoku9) spills nothing beyond the planes.
+//
 // Numerics: this file is built with -fmad=false and writes the float32
 // operations with round-to-nearest intrinsics, in the order of the plain
 // PyTorch versions in search/fused.py, so that results agree bit for bit.
@@ -42,13 +54,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define NO_CHILD (-1)
 #define ILLEGAL (-2)
 #define NEG_UCB (-1e30f)
 #define MAX_CELLS 256
 #define MAX_COLS 32
-#define MAX_A 32
+#define MAX_A 128
 #define PEND_COLS 7
+// a game's move rules (envs/core.py: Env.rules)
+#define RULES_CELLS 0
+#define RULES_GRAVITY 1
+#define RULES_NEIGHBOURHOOD 2
 
 namespace {
 
@@ -77,6 +95,31 @@ __device__ __forceinline__ bool any_line(const uint8_t* plane,
   return false;
 }
 
+// Whether action a is legal on the board of planes p0/p1 (0/1 per cell)
+// under the rules (cells and neighbourhood games: the action is the cell);
+// h holds the column heights under gravity, any whether a stone is on the
+// board (neighbourhood).
+template <int RULES, class T>
+__device__ __forceinline__ bool legal(const T* p0, const T* p1, const int* h,
+                                      bool any, int a, int R, int C) {
+  if (RULES == RULES_GRAVITY) return h[a] < R;
+  if (p0[a] || p1[a]) return false;
+  if (RULES == RULES_CELLS) return true;
+  if (!any) return a == (R / 2) * C + C / 2;
+  const int r = a / C, k = a % C;
+  for (int rr = max(r - 1, 0); rr <= min(r + 1, R - 1); ++rr)
+    for (int kk = max(k - 1, 0); kk <= min(k + 1, C - 1); ++kk)
+      if (p0[rr * C + kk] || p1[rr * C + kk]) return true;
+  return false;
+}
+
+template <class T>
+__device__ __forceinline__ bool any_stone(const T* p0, const T* p1, int RC) {
+  for (int c = 0; c < RC; ++c)
+    if (p0[c] || p1[c]) return true;
+  return false;
+}
+
 __global__ void root_obs_kernel(const int8_t* board, const int32_t* player,
                                 float* obs, int8_t* rec_obs, int B, int RC,
                                 int F) {
@@ -98,6 +141,7 @@ __global__ void root_obs_kernel(const int8_t* board, const int32_t* player,
   }
 }
 
+template <int RULES>
 __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
                                  float* prior, const float* probs,
                                  const float* value, const float* noise,
@@ -105,8 +149,11 @@ __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
                                  int R, int C, float eps) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  int h[MAX_COLS];
-  column_heights(board + (size_t)b * 2 * R * C, R, C, h);
+  const int RC = R * C;
+  const int8_t* bd = board + (size_t)b * 2 * RC;
+  int h[RULES == RULES_GRAVITY ? MAX_COLS : 1];
+  if (RULES == RULES_GRAVITY) column_heights(bd, R, C, h);
+  const bool any = RULES == RULES_NEIGHBOURHOOD && any_stone(bd, bd + RC, RC);
   const float one_m = __fsub_rn(1.0f, eps);
   int32_t* ch = child + (size_t)b * N * A;
   float* pr = prior + (size_t)b * N * A;
@@ -114,7 +161,7 @@ __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
     float p = probs[(size_t)b * A + a];
     if (noise != nullptr)
       p = __fadd_rn(__fmul_rn(one_m, p), __fmul_rn(eps, noise[(size_t)a * B + b]));
-    const bool ok = h[a] < R;
+    const bool ok = legal<RULES>(bd, bd + RC, h, any, a, R, C);
     ch[a] = ok ? NO_CHILD : ILLEGAL;
     pr[a] = ok ? qprior(p) : 0.0f;
   }
@@ -128,6 +175,7 @@ __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
   vl[0] = -value[b];
 }
 
+template <int RULES>
 __global__ void descend_leaf_kernel(
     const float* visit, const float* val, const int32_t* child,
     const float* prior, const int8_t* board, const int32_t* player,
@@ -152,8 +200,8 @@ __global__ void descend_leaf_kernel(
     planes[0][c] = (uint8_t)bd[c];
     planes[1][c] = (uint8_t)bd[RC + c];
   }
-  int h[MAX_COLS];
-  column_heights(bd, R, C, h);
+  int h[RULES == RULES_GRAVITY ? MAX_COLS : 1];
+  if (RULES == RULES_GRAVITY) column_heights(bd, R, C, h);
   const int rootp = player[b];
 
   int node = 0, depth = 0, parent = -1, action = 0, chsel = 0;
@@ -197,8 +245,12 @@ __global__ void descend_leaf_kernel(
     pv = v_sel;
     // play the selected move on the walk's board
     const int mover = (rootp + d) & 1;
-    if (h[act] < R) planes[mover][(R - 1 - h[act]) * C + act] = 1;
-    h[act] += 1;
+    if (RULES == RULES_GRAVITY) {
+      if (h[act] < R) planes[mover][(R - 1 - h[act]) * C + act] = 1;
+      h[act] += 1;
+    } else {
+      planes[mover][act] = 1;
+    }
     stop = now_stop;
   }
   const bool root_case = parent < 0;
@@ -215,7 +267,11 @@ __global__ void descend_leaf_kernel(
   pd[4] = leaf;
   pd[5] = terminal;
   pd[6] = won;
-  for (int a = 0; a < A; ++a) valid[(size_t)b * A + a] = h[a] < R;
+  const bool any =
+      RULES == RULES_NEIGHBOURHOOD && any_stone(planes[0], planes[1], RC);
+  for (int a = 0; a < A; ++a)
+    valid[(size_t)b * A + a] =
+        legal<RULES>(planes[0], planes[1], h, any, a, R, C);
   float* o = obs + (size_t)b * F * RC;
   for (int c = 0; c < RC; ++c) {
     o[c] = (float)planes[leaf_player][c];
@@ -255,6 +311,7 @@ __global__ void apply_kernel(float* visit, float* val, int32_t* child,
   }
 }
 
+template <int RULES>
 __global__ void move_tail_kernel(
     const float* visit, const float* val, const int32_t* child,
     const float* unif, int8_t* board, int32_t* player, int32_t* mc,
@@ -267,14 +324,19 @@ __global__ void move_tail_kernel(
   const int RC = R * C;
   const float* vs = visit + (size_t)b * N;
   const int32_t* ch0 = child + (size_t)b * N * A;
-  float counts[MAX_A];
-  float total = 0.0f;
+  // a root count is read again where it is needed, not kept in a
+  // per-thread array of A entries
+  auto count = [&](int a) { return ch0[a] >= 0 ? floorf(vs[ch0[a]]) : 0.0f; };
+  float total = 0.0f, best = -1.0f;  // counts are >= 0
   int greedy = 0, last_visited = -1;
   for (int a = 0; a < A; ++a) {
-    counts[a] = ch0[a] >= 0 ? floorf(vs[ch0[a]]) : 0.0f;
-    total = __fadd_rn(total, counts[a]);
-    if (counts[a] > counts[greedy]) greedy = a;
-    if (counts[a] > 0.0f) last_visited = a;
+    const float n = count(a);
+    total = __fadd_rn(total, n);
+    if (n > best) {  // the first maximum
+      best = n;
+      greedy = a;
+    }
+    if (n > 0.0f) last_visited = a;
   }
   total = fmaxf(total, 1.0f);
   const float rootq = __fdiv_rn(val[(size_t)b * N], fmaxf(floorf(vs[0]), 1.0f));
@@ -282,7 +344,7 @@ __global__ void move_tail_kernel(
   float acc = 0.0f;
   int sampled = A;
   for (int a = 0; a < A; ++a) {
-    const float p = __fdiv_rn(counts[a], total);
+    const float p = __fdiv_rn(count(a), total);
     r_policy[(size_t)b * A + a] = p;
     acc = __fadd_rn(acc, p);
     if (sampled == A && acc > u) sampled = a;
@@ -293,9 +355,13 @@ __global__ void move_tail_kernel(
   // env step for the player to move
   const int p = player[b];
   int8_t* bd = board + (size_t)b * 2 * RC;
-  int h[MAX_COLS];
-  column_heights(bd, R, C, h);
-  if (h[act] < R) bd[p * RC + (R - 1 - h[act]) * C + act] = 1;
+  if (RULES == RULES_GRAVITY) {
+    int h[MAX_COLS];
+    column_heights(bd, R, C, h);
+    if (h[act] < R) bd[p * RC + (R - 1 - h[act]) * C + act] = 1;
+  } else {
+    bd[p * RC + act] = 1;
+  }
   uint8_t plane[MAX_CELLS];
   for (int c = 0; c < RC; ++c) plane[c] = (uint8_t)bd[p * RC + c];
   const bool won = any_line(plane, lines, L, K);
@@ -351,12 +417,11 @@ __global__ void root_counts_kernel(const float* visit, const float* val,
   if (b >= B) return;
   const float* vs = visit + (size_t)b * N;
   const int32_t* ch0 = child + (size_t)b * N * A;
-  int cnt[MAX_A];
+  int32_t* cnt = counts + (size_t)b * A;  // read back by this thread
   int tot = 0;
   for (int a = 0; a < A; ++a) {
     const int c = ch0[a];
     cnt[a] = c >= 0 ? (int)floorf(vs[c]) : 0;
-    counts[(size_t)b * A + a] = cnt[a];
     tot += cnt[a];
   }
   const float total = (float)max(tot, 1);
@@ -368,6 +433,27 @@ __global__ void root_counts_kernel(const float* visit, const float* val,
 constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// The games these kernels take (search/fused.py:supports_chunk mirrors it).
+bool game_ok(int A, int R, int C, int rules) {
+  if (A < 1 || A > MAX_A || R * C > MAX_CELLS) return false;
+  if (rules == RULES_GRAVITY) return C <= MAX_COLS && A == C;
+  return (rules == RULES_CELLS || rules == RULES_NEIGHBOURHOOD) && A == R * C;
+}
+
+// launch(std::integral_constant<int, RULES>) for the game's rules, then the
+// launch's error code
+template <class Launch>
+int with_rules(int A, int R, int C, int rules, Launch launch) {
+  if (!game_ok(A, R, C, rules)) return (int)cudaErrorInvalidValue;
+  if (rules == RULES_GRAVITY)
+    launch(std::integral_constant<int, RULES_GRAVITY>());
+  else if (rules == RULES_NEIGHBOURHOOD)
+    launch(std::integral_constant<int, RULES_NEIGHBOURHOOD>());
+  else
+    launch(std::integral_constant<int, RULES_CELLS>());
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -388,13 +474,14 @@ int az_root_obs(const void* board, const void* player, void* obs,
 int az_root_init(void* visit, void* val, void* child, void* prior,
                  const void* probs, const void* value, const void* noise,
                  const void* board, int B, int N, int A, int R, int C,
-                 float eps, void* stream) {
-  if (A > MAX_COLS || C > MAX_COLS) return (int)cudaErrorInvalidValue;
-  root_init_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
-      (const float*)probs, (const float*)value, (const float*)noise,
-      (const int8_t*)board, B, N, A, R, C, eps);
-  return (int)cudaGetLastError();
+                 int rules, float eps, void* stream) {
+  return with_rules(A, R, C, rules, [&](auto rl) {
+    root_init_kernel<decltype(rl)::value>
+        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+            (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
+            (const float*)probs, (const float*)value, (const float*)noise,
+            (const int8_t*)board, B, N, A, R, C, eps);
+  });
 }
 
 int az_descend_leaf(const void* visit, const void* val, const void* child,
@@ -402,16 +489,16 @@ int az_descend_leaf(const void* visit, const void* val, const void* child,
                     const void* mc, const void* lines, void* path, void* apath,
                     void* pend, void* valid, void* obs, int B, int N, int A,
                     int R, int C, int F, int L, int K, int dcap, int max_moves,
-                    int slot, int az, float c_puct, void* stream) {
-  if (R * C > MAX_CELLS || C > MAX_COLS || A > MAX_COLS)
-    return (int)cudaErrorInvalidValue;
-  descend_leaf_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)visit, (const float*)val, (const int32_t*)child,
-      (const float*)prior, (const int8_t*)board, (const int32_t*)player,
-      (const int32_t*)mc, (const int32_t*)lines, (int32_t*)path,
-      (int32_t*)apath, (int32_t*)pend, (uint8_t*)valid, (float*)obs, B, N, A,
-      R, C, F, L, K, dcap, max_moves, slot, az, c_puct);
-  return (int)cudaGetLastError();
+                    int rules, int slot, int az, float c_puct, void* stream) {
+  return with_rules(A, R, C, rules, [&](auto rl) {
+    descend_leaf_kernel<decltype(rl)::value>
+        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)visit, (const float*)val, (const int32_t*)child,
+            (const float*)prior, (const int8_t*)board, (const int32_t*)player,
+            (const int32_t*)mc, (const int32_t*)lines, (int32_t*)path,
+            (int32_t*)apath, (int32_t*)pend, (uint8_t*)valid, (float*)obs, B,
+            N, A, R, C, F, L, K, dcap, max_moves, slot, az, c_puct);
+  });
 }
 
 int az_apply(void* visit, void* val, void* child, void* prior,
@@ -430,16 +517,18 @@ int az_move_tail(const void* visit, const void* val, const void* child,
                  const void* lines, void* r_policy, void* r_player, void* r_t,
                  void* r_action, void* r_done, void* r_winner, void* r_rootq,
                  int B, int N, int A, int R, int C, int L, int K,
-                 int max_moves, int temperature_moves, void* stream) {
-  if (A > MAX_A || R * C > MAX_CELLS || C > MAX_COLS)
-    return (int)cudaErrorInvalidValue;
-  move_tail_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)visit, (const float*)val, (const int32_t*)child,
-      (const float*)unif, (int8_t*)board, (int32_t*)player, (int32_t*)mc,
-      (const int32_t*)lines, (float*)r_policy, (int32_t*)r_player,
-      (int32_t*)r_t, (int32_t*)r_action, (uint8_t*)r_done, (int32_t*)r_winner,
-      (float*)r_rootq, B, N, A, R, C, L, K, max_moves, temperature_moves);
-  return (int)cudaGetLastError();
+                 int max_moves, int rules, int temperature_moves,
+                 void* stream) {
+  return with_rules(A, R, C, rules, [&](auto rl) {
+    move_tail_kernel<decltype(rl)::value>
+        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)visit, (const float*)val, (const int32_t*)child,
+            (const float*)unif, (int8_t*)board, (int32_t*)player,
+            (int32_t*)mc, (const int32_t*)lines, (float*)r_policy,
+            (int32_t*)r_player, (int32_t*)r_t, (int32_t*)r_action,
+            (uint8_t*)r_done, (int32_t*)r_winner, (float*)r_rootq, B, N, A, R,
+            C, L, K, max_moves, temperature_moves);
+  });
 }
 
 int az_move_root_init(void* visit, void* val, void* child, void* prior,

@@ -16,6 +16,15 @@ evaluates and mixes the root on the host, initialises the tree from that
 prior with finished games left unexpanded, runs the same S−1 simulations
 and returns the root counts, policy and root Q.
 
+Both serve every game whose board and actions the kernels take, with the
+game's move rules (``env.rules``): connect4's gravity, tictactoe's empty
+cells, gomoku's neighbourhood with the centre as the only opening.  The
+legal mask is the JAX kernels' rule (``pallas_fused.py:884-898``,
+``pallas_mcts._leaf_finish``): column heights under gravity, else the
+env's ``valid_mask_board``, which gives the same bits.
+:func:`supports_chunk` is the static gate that the self-play runner and
+``run_mcts`` consult.
+
 Each stage is a hand-written CUDA kernel (``csrc/search.cu``,
 ``csrc/dense_forward.cu``) with its plain PyTorch version beside it in this
 module.  A wrapper runs the plain version only for tensors on the CPU; for
@@ -50,7 +59,10 @@ import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
-from alphazero_tpu_torch.envs.core import _make_line_matrix, line_cells
+from alphazero_tpu_torch.envs.core import (RULES_GRAVITY,
+                                           RULES_NEIGHBOURHOOD,
+                                           _make_line_matrix, line_cells)
+from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
 from alphazero_tpu_torch.ops.build import load as load_lib
 from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
@@ -59,28 +71,40 @@ from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
 
 NO_CHILD = -1
 ILLEGAL = -2
+# boards the search kernels take (csrc/search.cu: the walk's board is two
+# planes of at most 256 cells, connect4's heights at most 32 columns)
+SEARCH_MAX_CELLS = 256
+SEARCH_MAX_COLS = 32
 # columns of the pending-leaf record written by the descent
 P_DEPTH, P_PARENT, P_ACTION, P_ALLOC, P_LEAF, P_TERMINAL, P_WON = range(7)
 PEND_COLS = 7
 
 
 def game_tables(env) -> dict:
-    """Constant tables of a game: the line matrix ``W (RC, L)``, its cells
-    ``lines (L, win_len)`` and, for connect4, the column matrix
-    ``aux (C, RC)``."""
-    RC = env.rows * env.cols
-    W = _make_line_matrix(env.rows, env.cols, env.win_len)
-    tables = {"W": W.astype(np.float32),
-              "lines": line_cells(env.rows, env.cols, env.win_len)}
-    if env.name == "connect4":
-        colmat = np.zeros((env.cols, RC), np.float32)
-        for c in range(env.cols):
-            for r in range(env.rows):
-                colmat[c, r * env.cols + c] = 1.0
-        tables["aux"] = colmat
+    """Constant tables of a game, the JAX kernels' ``_game_tables``: the
+    line matrix ``W (RC, L)``, its cells ``lines (L, win_len)`` and ``aux``,
+    the matrix of the legal mask: connect4's column matrix ``(C, RC)``,
+    gomoku's 8-neighbourhood ``(RC, RC)`` (each cell with itself), a zero
+    row ``(1, RC)`` for tictactoe.  The CUDA kernels take the move rules
+    (``env.rules``) in place of ``aux``."""
+    R, C = env.rows, env.cols
+    RC = R * C
+    W = _make_line_matrix(R, C, env.win_len)
+    if env.rules == RULES_GRAVITY:
+        aux = np.zeros((C, RC), np.float32)
+        for c in range(C):
+            aux[c, c::C] = 1.0
+    elif env.rules == RULES_NEIGHBOURHOOD:
+        aux = np.zeros((RC, RC), np.float32)
+        for r in range(R):
+            for c in range(C):
+                for rr in range(max(r - 1, 0), min(r + 2, R)):
+                    aux[r * C + c,
+                        rr * C + max(c - 1, 0):rr * C + min(c + 2, C)] = 1.0
     else:
-        raise ValueError(f"env {env.name!r} is not ported to the chunk search")
-    return tables
+        aux = np.zeros((1, RC), np.float32)
+    return {"W": W.astype(np.float32), "lines": line_cells(R, C, env.win_len),
+            "aux": aux}
 
 
 def qprior(p: torch.Tensor) -> torch.Tensor:
@@ -188,7 +212,9 @@ _F = ctypes.c_float
 # launch geometry of az_dense_forward (csrc/dense_forward.cu)
 DENSE_COLS = 64          # output columns of each layer per CTA
 DENSE_MAX_CLUSTER = 8    # CTAs per cluster: the portable limit
-DENSE_MAX_ACTIONS = 32
+# actions the kernels take: the forward's softmax holds 4 per lane, the
+# search kernels check the same cap (csrc/dense_forward.cu, search.cu)
+MAX_ACTIONS = 128
 DENSE_TILES = (16, 32, 48)   # games per tile the kernel takes
 DENSE_WARPS = 8
 SMEM_LIMIT = 232_448     # dynamic shared memory one CTA may use on sm_90
@@ -225,7 +251,7 @@ def dense_tiles(D: int, kp: int, DV: int, A: int) -> tuple:
     if DV % cs or nv % 8 or nv > DENSE_COLS:
         raise ValueError(f"value_fc width {DV} does not split into "
                          f"{cs} slices of a multiple of 8 up to {DENSE_COLS}")
-    if kp % 16 or not 1 <= A <= DENSE_MAX_ACTIONS:
+    if kp % 16 or not 1 <= A <= MAX_ACTIONS:
         raise ValueError(f"unsupported widths Kp={kp} A={A}")
     fits = tuple(g for g in DENSE_TILES
                  if dense_smem_bytes(g, D, kp, DV, A) <= SMEM_LIMIT)
@@ -423,7 +449,8 @@ def root_init_reference(env, cfg: MCTSConfig, tree: Tree, probs, value,
         eps = torch.tensor(cfg.dirichlet_eps, dtype=torch.float32)
         one_m = (1.0 - eps).item()
         p = one_m * p + eps.item() * noise_m.T
-    valid = _heights(board) < env.rows
+    valid = (_heights(board) < env.rows if env.rules == RULES_GRAVITY
+             else env.valid_mask_board(board, None))
     tree.visit.zero_()
     tree.val.zero_()
     tree.visit[:, 0] = 1.5
@@ -456,7 +483,8 @@ def descend_leaf_reference(env, cfg: MCTSConfig, tree: Tree, board, player,
     action = torch.zeros(B, dtype=torch.long, device=dev)
     chsel = torch.zeros(B, dtype=torch.long, device=dev)
     flat = board.reshape(B, 2, R * C).clone()
-    heights = _heights(board)
+    gravity = env.rules == RULES_GRAVITY
+    heights = _heights(board) if gravity else None
     c_puct = torch.tensor(cfg.c_puct, dtype=torch.float32).item()
     for d in range(dcap):
         if bool(stop.all()):
@@ -490,12 +518,15 @@ def descend_leaf_reference(env, cfg: MCTSConfig, tree: Tree, board, player,
         node = torch.where(live & ~now_stop, c_sel, node)
         pv = torch.where(live, v_sel, pv)
         # play the selected move on the walk's board
-        h = heights[ar, act]
-        put = live & (h < R)
         mover = (player.long() + d) % 2
-        cell = (R - 1 - h) * C + act
+        if gravity:
+            h = heights[ar, act]
+            put = live & (h < R)
+            cell = (R - 1 - h) * C + act
+            heights[ar[live], act[live]] += 1
+        else:
+            put, cell = live, act
         flat[ar[put], mover[put], cell[put]] = 1
-        heights[ar[live], act[live]] += 1
         stop = stop | now_stop
     root_case = parent < 0
     alloc = (parent >= 0) & (chsel < 0)
@@ -507,7 +538,9 @@ def descend_leaf_reference(env, cfg: MCTSConfig, tree: Tree, board, player,
                        torch.where(alloc, torch.full_like(chsel, slot), chsel))
     cols = (depth, parent, action, alloc, leaf, terminal, won)
     tree.pend.copy_(torch.stack([c.to(torch.int32) for c in cols], dim=1))
-    tree.valid.copy_(heights < R)
+    tree.valid.copy_(heights < R if gravity
+                     else env.valid_mask_board(flat.reshape(B, 2, R, C),
+                                           None))
     tree.obs.copy_(env.observation_from_board(flat.reshape(B, 2, R, C),
                                               leaf_player).reshape(B, -1))
 
@@ -577,11 +610,14 @@ def move_tail_reference(env, cfg: MCTSConfig, tree: Tree, u, board, player,
     sampled = torch.where(sampled >= A, fallback, sampled)
     act = torch.where(mc < cfg.temperature_moves, sampled, greedy)
     # env step
-    h = _heights(board)[ar, act]
     flat = board.reshape(B, 2, R * C)
     pl = player.long()
-    put = h < R
-    flat[ar[put], pl[put], ((R - 1 - h) * C + act)[put]] = 1
+    if env.rules == RULES_GRAVITY:
+        h = _heights(board)[ar, act]
+        put = h < R
+        flat[ar[put], pl[put], ((R - 1 - h) * C + act)[put]] = 1
+    else:
+        flat[ar, pl, act] = 1
     won = env.won_batch(board[ar, pl])
     mc1 = mc + 1
     done = won | (mc1 >= env.max_moves)
@@ -639,19 +675,21 @@ def root_counts_reference(tree: Tree):
 K_ROOT_OBS = CudaKernel("search.cu", "az_root_obs", [
     _P, _P, _P, _P, _I, _I, _I, _P])
 K_ROOT_INIT = CudaKernel("search.cu", "az_root_init", [
-    _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+    _P, _P, _P, _P, _P, _P, _P, _P,       # visit val child prior probs value noise board
+    _I, _I, _I, _I, _I, _I, _F, _P])      # B N A R C rules eps stream
 K_DESCEND = CudaKernel("search.cu", "az_descend_leaf", [
     _P, _P, _P, _P, _P, _P, _P, _P,       # visit val child prior board player mc lines
     _P, _P, _P, _P, _P,                   # path apath pend valid obs
     _I, _I, _I, _I, _I, _I, _I, _I, _I,   # B N A R C F L K dcap
-    _I, _I, _I, _F, _P])                  # max_moves slot az c_puct stream
+    _I, _I, _I, _I, _F, _P])              # max_moves rules slot az c_puct stream
 K_APPLY = CudaKernel("search.cu", "az_apply", [
     _P, _P, _P, _P, _P, _P, _P, _P, _P,   # visit val child prior path pend valid probs value
     _I, _I, _I, _I, _I, _P])              # B N A dcap slot stream
 K_TAIL = CudaKernel("search.cu", "az_move_tail", [
     _P, _P, _P, _P, _P, _P, _P, _P,       # visit val child unif board player mc lines
     _P, _P, _P, _P, _P, _P, _P,           # rec policy player t action done winner root_q
-    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])  # B N A R C L K max_moves temp stream
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B N A R C L K max_moves rules temp
+    _P])                                  # stream
 K_MOVE_ROOT_INIT = CudaKernel("search.cu", "az_move_root_init", [
     _P, _P, _P, _P, _P, _P, _P,           # visit val child prior root_prior value live
     _I, _I, _I, _P])                      # B N A stream
@@ -704,7 +742,7 @@ def root_init(env, cfg: MCTSConfig, tree: Tree, probs, value, noise_m, board):
                 tree.child.data_ptr(), tree.prior.data_ptr(),
                 probs.data_ptr(), value.data_ptr(),
                 None if noise_m is None else noise_m.data_ptr(),
-                board.data_ptr(), B, N, A, env.rows, env.cols,
+                board.data_ptr(), B, N, A, env.rows, env.cols, env.rules,
                 float(cfg.dirichlet_eps), stream(board))
 
 
@@ -725,8 +763,7 @@ def descend_leaf(env, cfg: MCTSConfig, tree: Tree, board, player, mc,
               tree.apath.data_ptr(), tree.pend.data_ptr(),
               tree.valid.data_ptr(), tree.obs.data_ptr(),
               B, N, A, env.rows, env.cols, env.feature_dim, L, K, dcap,
-              env.max_moves,
-              int(slot), int(cfg.formula == "alphazero"), float(cfg.c_puct),
+              env.max_moves, env.rules, int(slot), int(cfg.formula == "alphazero"), float(cfg.c_puct),
               stream(board))
 
 
@@ -768,7 +805,7 @@ def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec):
            u.data_ptr(), board.data_ptr(), player.data_ptr(), mc.data_ptr(),
            tree.lines.data_ptr(),
            *(rec[name].data_ptr() for name in _REC_TYPES),
-           B, N, A, env.rows, env.cols, L, K, env.max_moves,
+           B, N, A, env.rows, env.cols, L, K, env.max_moves, env.rules,
            int(cfg.temperature_moves), stream(board))
 
 
@@ -824,18 +861,34 @@ DISPATCH = SimpleNamespace(root_obs=root_obs,
 # the chunk
 # ---------------------------------------------------------------------------
 
-def require_connect4(env):
-    """The whole-chunk and move searches are ported for connect4 only (the
-    JAX package's also serve tictactoe and gomoku: ROADMAP.md)."""
-    if env.name != "connect4":
-        raise NotImplementedError(
-            f"the dense tower's fused searches are ported for connect4 only, "
-            f"not {env.name!r} (ROADMAP.md module 11)")
+def supports_chunk(env, model, cfg: MCTSConfig) -> bool:
+    """Whether the dense tower's searches of this module (the whole-chunk
+    self-play and the move search) serve ``env``, ``model`` and ``cfg``;
+    the JAX package's ``supports_selfplay_fused`` / ``supports_fused``.
+
+    Its semantic gates: a ``DenseTower``, sequential simulations
+    (``leaf_batch == 1``) and ``num_simulations + 2 < 512`` (the bound of
+    the packed edges, whose priors are quantized).  The capacity gate of the
+    port: the search kernels take the game's board and actions and the
+    forward kernel the tower's widths (:func:`dense_tiles`).  It reads no
+    device, so the CPU and the card choose the same engine; what it
+    refuses runs move by move on the per-simulation engine."""
+    if not (isinstance(model, DenseTower) and cfg.leaf_batch == 1
+            and cfg.num_simulations + 2 < 512):
+        return False
+    if env.rows * env.cols > SEARCH_MAX_CELLS or (
+            env.rules == RULES_GRAVITY and env.cols > SEARCH_MAX_COLS):
+        return False
+    try:
+        dense_tiles(model.width, _pad16(model.in_features), model.width // 4,
+                    env.action_dim)
+    except ValueError:
+        return False
+    return True
 
 
 def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
            noise, unif, evaluator):
-    require_connect4(env)
     B = boards.shape[0]
     A, F = env.action_dim, env.feature_dim
     R, C = env.rows, env.cols
@@ -930,7 +983,6 @@ def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
                move_counts, dones, use_dirichlet, noise, evaluator) -> Tree:
     """The move search's tree after its root (evaluated on the host) and
     simulations 1..S-1."""
-    require_connect4(env)
     B = boards.shape[0]
     board = boards.to(torch.int8).contiguous()
     player = players.to(torch.int32).contiguous()

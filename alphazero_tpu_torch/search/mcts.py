@@ -6,8 +6,8 @@ dispatches, as the JAX package does on its accelerator:
 * any network evaluator with ``leaf_batch > 1``, the dense tower's
   included, to the leaf-batched rounds of :func:`run_mcts_xla`;
 * an evaluator with ``dense_spec`` (``models.make_eval_fn`` of the dense
-  tower) to the whole-move search of ``search/fused.py`` while
-  ``num_simulations + 2 < 512``;
+  tower) to the whole-move search of ``search/fused.py`` where
+  ``fused.supports_chunk`` accepts the game, the tower and the config;
 * every other network evaluator to the per-simulation engine
   (``search/sim.py``, the JAX package's Pallas ``_sim_kernel`` /
   ``_flush_kernel``), at any batch size: the GPU has no lane alignment or
@@ -471,10 +471,12 @@ def run_mcts(env, eval_fn, boards, players, move_counts, dones,
         return run_mcts_xla(env, eval_fn, boards, players, move_counts, dones,
                             cfg, **kw)
     spec = getattr(eval_fn, "dense_spec", None)
-    if spec is not None and cfg.num_simulations + 2 < 512:
-        from alphazero_tpu_torch.search.fused import run_mcts_fused
-        return run_mcts_fused(env, spec[0], spec[1], eval_fn, boards, players,
-                              move_counts, dones, cfg, **kw)
+    if spec is not None:
+        from alphazero_tpu_torch.search import fused
+        if fused.supports_chunk(env, spec[0], cfg):
+            return fused.run_mcts_fused(env, spec[0], spec[1], eval_fn,
+                                        boards, players, move_counts, dones,
+                                        cfg, **kw)
     from alphazero_tpu_torch.search.sim import run_mcts_sim
     return run_mcts_sim(env, eval_fn, boards, players, move_counts, dones,
                         cfg, **kw)

@@ -5,7 +5,7 @@ are 1 + small integer stone counts (exact in float32 in any summation
 order), priors are grid-aligned to 2⁻¹⁴ and the value is a function of the
 stone count, so every engine sees the same bits and whole search
 trajectories can be compared for equality.  :func:`drawn_board` gives the
-finished-game cases of those checks a drawn connect4 position.
+finished-game cases of those checks a drawn position of each game.
 """
 
 from __future__ import annotations
@@ -32,11 +32,23 @@ def exact_stub_evaluator(env):
 
 
 def drawn_board(env) -> torch.Tensor:
-    """A full connect4 board ``(2, R, C)`` int8 with no line for either
-    player: the bottom row's columns belong to players 0 0 1 1 0 0 1, and
-    every row up swaps them."""
-    if (env.rows, env.cols) != (6, 7):
-        raise ValueError("drawn_board is a 6x7 connect4 board")
-    base = torch.tensor([0, 0, 1, 1, 0, 0, 1])
-    owner = base[None, :] ^ (torch.arange(env.rows)[:, None] % 2)
+    """A full board ``(2, R, C)`` int8 with no line for either player, the
+    first player holding the extra stone of an odd board.
+
+    connect4: the bottom row's columns belong to players 0 0 1 1 0 0 1, and
+    every row up swaps them; tictactoe: X O X / X O O / O X X; gomoku:
+    cell (r, c) belongs to player 0 where ``(c + 2r) mod 4 >= 2``, so no
+    row, column or diagonal holds more than two stones of one player in a
+    row."""
+    R, C = env.rows, env.cols
+    if env.name == "connect4":
+        base = torch.tensor([0, 0, 1, 1, 0, 0, 1])
+        owner = base[None, :] ^ (torch.arange(R)[:, None] % 2)
+    elif env.name == "tictactoe":
+        owner = torch.tensor([[0, 1, 0], [0, 1, 1], [1, 0, 0]])
+    elif env.name.startswith("gomoku"):
+        owner = ((torch.arange(C)[None] + 2 * torch.arange(R)[:, None]) % 4
+                 >= 2).long()
+    else:
+        raise ValueError(f"no drawn board for {env.name!r}")
     return torch.stack([owner == 0, owner == 1]).to(torch.int8)

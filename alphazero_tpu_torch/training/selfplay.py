@@ -2,12 +2,13 @@
 
 Counterpart of the JAX package's ``training/selfplay.py``.  Two runners:
 
-* the dense tower's chunk path (``selfplay_chunk_fused``): one call of the
+* the dense tower's chunk path (``selfplay_chunk_fused``) where
+  ``search.fused.supports_chunk`` accepts it: one call of the
   whole-chunk search (``search/fused.py``) plays M moves for every game,
   then its per-move records are folded into the per-game trajectory slabs
   and every finished game's slab is flushed into the replay ring, once per
   done event;
-* every other family, and the dense tower with leaf batching, one move at
+* every other family, and the dense towers it refuses, one move at
   a time (:func:`selfplay_step`): a ``run_mcts`` search of all games (the
   per-simulation engine for the ResNet, the portable engine's leaf-batched
   rounds for ``leaf_batch > 1``), the action (visit-sampled before
@@ -29,8 +30,8 @@ from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import EnvState
 from alphazero_tpu_torch.eval.arena import gumbel_noise
 from alphazero_tpu_torch.models import make_eval_fn
-from alphazero_tpu_torch.models.dense import DenseTower
-from alphazero_tpu_torch.search.fused import run_selfplay_chunk
+from alphazero_tpu_torch.search.fused import (run_selfplay_chunk,
+                                              supports_chunk)
 from alphazero_tpu_torch.search.mcts import first_argmax, run_mcts
 
 
@@ -184,13 +185,15 @@ def make_selfplay_runner(env, model, mcts_cfg: MCTSConfig,
                          replay_cfg: ReplayConfig, num_steps: int,
                          fused_resnet: bool = False) -> Callable:
     """``runner(params, sp, buffer) -> (sp, buffer)`` advancing every game
-    ``num_steps`` moves: through the whole-chunk search for the dense
-    tower with sequential simulations (``leaf_batch == 1``, as the JAX
-    package's ``supports_selfplay_fused`` requires), through ``num_steps``
-    :func:`selfplay_step` calls otherwise, with one evaluator per call of
-    the runner (``make_eval_fn(..., fused_resnet)``: the fused tower's
-    weights are packed once per chunk)."""
-    if isinstance(model, DenseTower) and mcts_cfg.leaf_batch == 1:
+    ``num_steps`` moves: through the whole-chunk search where
+    ``supports_chunk`` accepts the game, the model and the config (the
+    dense tower with sequential simulations and fewer than 510 of them, as
+    the JAX package's ``supports_selfplay_fused`` requires, at shapes the
+    kernels take), through ``num_steps`` :func:`selfplay_step` calls
+    otherwise, with one evaluator per call of the runner
+    (``make_eval_fn(..., fused_resnet)``: the fused tower's weights are
+    packed once per chunk)."""
+    if supports_chunk(env, model, mcts_cfg):
         def run(params, sp: SelfPlayState, buffer: ReplayBuffer):
             return selfplay_chunk(env, model, params, mcts_cfg, replay_cfg,
                                   sp, buffer, num_steps)

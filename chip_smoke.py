@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the final line):
      calls queued behind a sleep kernel (``device_ms``);
   3. the whole-chunk search kernels against the plain chunk, bit for bit,
      under the exact stub evaluator at B=512, S=200, M=4 with Dirichlet
-     noise and temperature sampling (both fed the same noise and uniforms);
+     noise and temperature sampling (both fed the same noise and uniforms),
+     empty boards and boards one move from a win mixed in;
   4. the main path: ``Trainer(preset("connect4")).collect`` at full width
      with the real forward kernel, launch counts set to 0 before and read
      after, checks on the games it produced, env-steps/s over >= 3 chunks;
@@ -64,8 +65,24 @@ Phases (any failure exits non-zero before the final line):
      self-play move profiled under the fused and the
      eager evaluator, and one gate move under the fused evaluator; one
      leaf-batched search (K=8) on the fused evaluator;
-then the main-path summaries, one JSON line of all eleven kernels, the card
-line, and the device JSON.
+ 11. the dense tower's searches off connect4: the forward kernel against
+     its plain version at gomoku9-dense's width (512×2, A=81) at B=256,
+     128 and the ragged 1, 17, 129 (with the device-time sweeps of phase
+     2) and on a dense tictactoe tower; the chunk's kernels against the
+     plain chunk, bit for bit, under the exact stub with Dirichlet noise
+     and temperature sampling, at gomoku9 B=256, S=400, M=2 and tictactoe
+     B=256, S=50, M=4, empty and near-win boards mixed in; the move search
+     bitwise at gomoku9 B=128, S=400 with live, won and drawn roots;
+     ``Trainer(preset("gomoku9-dense")).iterate(vanilla_eval=False)`` at
+     full width, launch counts set to 0 before and measured per phase,
+     env-steps/s of its chunks, and checks on every move its chunks played
+     (legal, the first in the centre, a winner exactly where a line was
+     completed); each search kernel against its plain version on that
+     path's snapshots (B=256 and the gate's B=128) with times and bounds;
+     one chunk and one gate move profiled; the phase's seconds;
+then the main-path summaries, one JSON line of all eleven kernels (each
+with the games it was held at, and the gomoku9-dense path's launches,
+times and bounds under ``by_path``), the card line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -384,6 +401,276 @@ def counted_phases(obj, phases, kernels, split):
     for phase in phases:
         setattr(obj, phase, wrap(phase, getattr(obj, phase)))
     return counts
+
+
+def forward_by_batch(env, model, params, packed, batches, sweep, gen, dev):
+    """The forward kernel against its plain version at each batch of
+    ``batches`` (observations of random play): error, launch geometry and
+    the device time of the kernel and of the eager module (models/dense.py
+    through make_eval_fn), both by device_ms; at the batches of ``sweep``
+    also the other tiles and the launch with fewer blocks.  Fails on a
+    disagreement; returns ``{batch: summary}``."""
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.search import fused
+    eager_dense = make_eval_fn(model, params)
+    by_batch = {}
+    for Bx in batches:
+        ox = env.observation(random_positions(env, Bx, gen, dev))
+        flat = ox.reshape(Bx, -1).contiguous()
+        pk, vk = fused.dense_forward(flat, packed)
+        pp, vp = fused.dense_forward_reference(flat, packed)
+        torch.cuda.synchronize()
+        err = torch.cat([(pk - pp).abs().reshape(-1), (vk - vp).abs()])
+        e_max, share = float(err.max()), float((err <= 1e-3).float().mean())
+        ok = (bool(torch.isfinite(err).all()) and e_max <= TOL_FWD_MAX
+              and share >= TOL_FWD_FRAC)
+        geo = fused.dense_geometry(Bx, packed)
+        # device times: the kernel, the eager module; at the main path's
+        # batches also the other tiles and the launch with 0 and 1 of the 2
+        # blocks (the fixed cost: input, stem, final LayerNorm, heads; and
+        # the cost per block)
+        runs = [("kernel", lambda: fused.dense_forward(flat, packed), 20),
+                ("eager", lambda: eager_dense(ox), 5)]
+        if Bx in sweep:
+            for tg in fused.dense_tiles(*fused._dense_widths(packed)):
+                def run_tile(tg=tg):
+                    with planned(fused, "dense_plan",
+                                 lambda *a: {"games_per_tile": tg}):
+                        fused.dense_forward(flat, packed)
+
+                runs.append((f"tile {tg}", run_tile, 10))
+            for nb_cut in range(model.blocks):
+                cut = dict(packed, **{k: packed[k][:nb_cut].contiguous()
+                                      for k in ("ln_s", "ln_b", "w1", "b1",
+                                                "w2", "b2")})
+                runs.append((f"blocks {nb_cut}",
+                             lambda cut=cut: fused.dense_forward(flat, cut),
+                             10))
+        dev_t = device_ms(runs)
+
+        def kern(name):
+            return None if dev_t[name] is None else dev_t[name] * 1e3
+
+        k_us, e_dev = kern("kernel"), dev_t["eager"]
+        alts = {int(n[5:]): kern(n) for n, _, _ in runs
+                if n.startswith("tile ")}
+        depth = {int(n[7:]): kern(n) for n, _, _ in runs
+                 if n.startswith("blocks ")}
+        if depth:
+            depth[model.blocks] = k_us
+        log(f"[forward] {env.name} B={Bx}: max abs err {e_max:.3e}, share within 1e-3 "
+            f"{share:.4f} -> {'ok' if ok else 'FAIL'}; geometry {geo}; "
+            f"device per launch {k_us} us; eager module device "
+            f"{e_dev} ms per call; device us per launch by games per tile "
+            f"{alts}, by blocks {depth}")
+        if not ok:
+            fail(f"forward kernel disagrees with its plain version at B={Bx}")
+        by_batch[str(Bx)] = dict(max_abs_err=e_max, share_within_1e3=share,
+                                 device_us=k_us, eager_device_ms=e_dev,
+                                 geometry=geo, device_us_by_tile=alts,
+                                 device_us_by_blocks=depth)
+    return by_batch
+
+
+def chunk_kernels_phase(env, mcfg, tr, gen, dev):
+    """Each search kernel of the chunk against its plain version on a
+    snapshot of the trainer's self-play state (a main-path move of the
+    trainer's game), with times and bounds: ``{kernel: summary}``."""
+    from alphazero_tpu_torch.search import fused
+    summary = {}
+    S = mcfg.num_simulations
+    A, RC, F = env.action_dim, env.rows * env.cols, env.feature_dim
+    B = tr.sp.env_state.board.shape[0]
+    tree_fields = ("visit", "val", "child", "prior")
+    sp = tr.sp
+    board = sp.env_state.board.clone()
+    player = sp.env_state.current_player.clone()
+    mc = sp.env_state.move_count.clone()
+    N, dcap = S + 1, int(min(env.max_moves + 1, S + 1))
+    tree = fused.Tree(env, B, S, dev)
+    rec_obs = torch.zeros((B, F, env.rows, env.cols), dtype=torch.int8,
+                          device=dev)
+    packed = fused.pack_dense_params(tr.model, tr.params_best, dev)
+    noise_m = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen, dev)[0]
+    u = torch.rand((B,), generator=gen, device=dev)
+
+    # root observation and tree init at the start of the move
+    base = {"board": board, "player": player, "rec": rec_obs}
+    ms = compare("az_root_obs",
+                 lambda s: fused.root_obs(env, s["board"], s["player"], s["rec"]),
+                 lambda s: fused.root_obs_reference(env, s["board"], s["player"],
+                                                    s["rec"]),
+                 base, [out(lambda s, r: r, "obs"),
+                        out(lambda s, r: s["rec"], "rec_obs")])
+    b_ms, b_by = bound(nbytes(board, player) + B * F * RC * 5)
+    summary["az_root_obs"] = dict(**ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+    obs0 = fused.root_obs(env, board, player, rec_obs)
+    probs0, value0 = fused.dense_forward(obs0, packed)
+    state = {"tree": tree, "probs": probs0, "value": value0, "noise": noise_m,
+             "board": board}
+
+    ms = compare("az_root_init",
+                 lambda s: fused.root_init(env, mcfg, s["tree"], s["probs"],
+                                           s["value"], s["noise"], s["board"]),
+                 lambda s: fused.root_init_reference(
+                     env, mcfg, s["tree"], s["probs"], s["value"], s["noise"],
+                     s["board"]),
+                 tree_clone(state),
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in tree_fields])
+    b_ms, b_by = bound(nbytes(probs0, value0, noise_m, board)
+                       + 2 * B * N * 4 + B * A * 8, f32_ops=4.0 * B * A)
+    summary["az_root_init"] = dict(**ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    fused.root_init(env, mcfg, tree, probs0, value0, noise_m, board)
+    half = S // 2
+    for slot in range(1, half):
+        fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
+        p, v = fused.dense_forward(tree.obs, packed)
+        fused.apply(tree, slot, p, v)
+    # descend at slot S/2
+    dstate = {"tree": tree, "board": board, "player": player, "mc": mc}
+    ms = compare("az_descend_leaf",
+                 lambda s: fused.descend_leaf(env, mcfg, s["tree"], s["board"],
+                                              s["player"], s["mc"], half),
+                 lambda s: fused.descend_leaf_reference(
+                     env, mcfg, s["tree"], s["board"], s["player"], s["mc"],
+                     half),
+                 tree_clone(dstate),
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in ("path", "apath", "pend", "valid", "obs")],
+                 preps=2)
+    fused.descend_leaf(env, mcfg, tree, board, player, mc, half)
+    depth = tree.pend[:, fused.P_DEPTH].long()
+    steps = int(depth.sum())
+    path_nodes = tree.path.long().clamp(max=N - 1)
+    on_path = torch.arange(dcap, device=dev)[None] < depth[:, None]
+    kids = (tree.child[torch.arange(B, device=dev)[:, None], path_nodes] >= 0
+            ).sum(-1)
+    n_kids = int(kids[on_path].sum())
+    d_bytes = (steps * A * 8 + n_kids * 8 + nbytes(board, player, mc)
+               + 2 * B * dcap * 4 + B * 28 + B * A + B * F * RC * 4)
+    b_ms, b_by = bound(d_bytes, f32_ops=steps * A * 8.0)
+    summary["az_descend_leaf"] = dict(**ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+    log(f"  descend at slot {half}: {steps} walk steps over {B} games "
+        f"(deepest {int(depth.max())}), {n_kids} child reads")
+    p, v = fused.dense_forward(tree.obs, packed)
+    ms = compare("az_apply",
+                 lambda s: fused.apply(s["tree"], half, s["p"], s["v"]),
+                 lambda s: fused.apply_reference(s["tree"], half, s["p"], s["v"]),
+                 tree_clone({"tree": tree, "p": p, "v": v}),
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in tree_fields], preps=2)
+    plies = int((depth + 1).sum())
+    a_bytes = (nbytes(p, v, tree.pend, tree.valid) + plies * (4 + 16)
+               + B * A * 8 + B * 4)
+    b_ms, b_by = bound(a_bytes, f32_ops=2.0 * plies)
+    summary["az_apply"] = dict(**ms, bound_ms=b_ms,
+                               bound_by=b_by)
+    fused.apply(tree, half, p, v)
+    for slot in range(half + 1, S):
+        fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
+        p, v = fused.dense_forward(tree.obs, packed)
+        fused.apply(tree, slot, p, v)
+    rec = {"policy": torch.zeros((B, A), device=dev)}
+    for k in ("player", "t", "action", "winner"):
+        rec[k] = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rec["done"] = torch.zeros((B,), dtype=torch.bool, device=dev)
+    rec["root_q"] = torch.zeros((B,), device=dev)
+    tstate = {"tree": tree, "u": u, "board": board, "player": player,
+              "mc": mc, **{f"rec_{k}": v for k, v in rec.items()}}
+
+    def recs(s):
+        return {k: s[f"rec_{k}"] for k in rec}
+
+    ms = compare("az_move_tail",
+                 lambda s: fused.move_tail(env, mcfg, s["tree"], s["u"],
+                                           s["board"], s["player"], s["mc"],
+                                           recs(s)),
+                 lambda s: fused.move_tail_reference(
+                     env, mcfg, s["tree"], s["u"], s["board"], s["player"],
+                     s["mc"], recs(s)),
+                 tree_clone(tstate),
+                 [out(lambda s, r, k=k: s[k], k) for k in
+                  ("board", "player", "mc")]
+                 + [out(lambda s, r, k=k: s[f"rec_{k}"], f"rec_{k}")
+                    for k in rec])
+    t_bytes = (B * A * 4 * 2 + B * 8 * 2 + nbytes(u) + 2 * nbytes(board)
+               + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1))
+    b_ms, b_by = bound(t_bytes, f32_ops=4.0 * B * A)
+    summary["az_move_tail"] = dict(**ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    torch.cuda.synchronize()
+    return summary
+
+
+def move_kernels_phase(env, mcfg, model, params, margs, noise, dev):
+    """az_move_root_init and az_root_counts against their plain versions on
+    a move search of the roots ``margs`` (boards, players, move counts,
+    dones) with ``model``'s weights, and the forward kernel against its
+    plain version on every simulation of that search:
+    ``({kernel: summary}, the forward's max abs err)``."""
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.search import fused
+    from alphazero_tpu_torch.search.mcts import root_prior
+    summary = {}
+    Bg, S, A = margs[0].shape[0], mcfg.num_simulations, env.action_dim
+    N = S + 1
+    tree_fields = ("visit", "val", "child", "prior")
+    packed = fused.pack_dense_params(model, params, dev)
+    root_fn = make_eval_fn(model, params)
+    use6 = torch.ones(Bg, dtype=torch.bool, device=dev)
+    rp, v0, live6 = root_prior(env, mcfg, root_fn, *margs, use6, noise)
+    tree6 = fused.Tree(env, Bg, S, dev)
+    ms = compare("az_move_root_init",
+                 lambda s: fused.move_root_init(s["tree"], s["rp"], s["v"],
+                                                s["live"]),
+                 lambda s: fused.move_root_init_reference(
+                     s["tree"], s["rp"], s["v"], s["live"]),
+                 tree_clone({"tree": tree6, "rp": rp, "v": v0,
+                             "live": live6}),
+                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
+                  for f in tree_fields])
+    b_ms, b_by = bound(nbytes(rp, v0, live6) + 2 * Bg * N * 4 + Bg * A * 8,
+                       f32_ops=4.0 * Bg * A)
+    summary["az_move_root_init"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    # the search with the real forward kernel, held against its plain
+    # version at the gate's shape on every simulation
+    fwd_err = []
+
+    def checked_forward(o):
+        pk, vk = fused.dense_forward(o, packed)
+        pp, vp = fused.dense_forward_reference(o, packed)
+        if not (torch.isfinite(pk).all() and torch.isfinite(vk).all()):
+            fail(f"forward kernel at B={Bg}: non-finite output")
+        fwd_err.append(torch.cat([(pk - pp).abs().reshape(-1),
+                                  (vk - vp).abs()]))
+        return pk, vk
+
+    tree6 = fused._move_tree(fused.DISPATCH, env, mcfg, root_fn, *margs,
+                             use6, noise, checked_forward)
+    err = torch.cat(fwd_err)
+    err_b128 = float(err.max())
+    frac = float((err <= 1e-3).float().mean())
+    ok = err_b128 <= TOL_FWD_MAX and frac >= TOL_FWD_FRAC
+    log(f"[forward] B={Bg}, the {len(fwd_err)} simulations of a move search: "
+        f"max abs err {err_b128:.3e} (tol {TOL_FWD_MAX}), share within 1e-3 "
+        f"{frac:.4f} (tol {TOL_FWD_FRAC}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"forward kernel disagrees with its plain version at B={Bg}")
+    ms = compare("az_root_counts", lambda s: fused.root_counts(s["tree"]),
+                 lambda s: fused.root_counts_reference(s["tree"]),
+                 tree_clone({"tree": tree6}),
+                 [out(lambda s, r, i=i: r[i], name) for i, name in
+                  enumerate(("counts", "policy", "root_q"))])
+    n_kids = int((tree6.child[:, 0] >= 0).sum())
+    b_ms, b_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
+                       + Bg * 4, f32_ops=float(Bg * A + Bg))
+    summary["az_root_counts"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+
+    return summary, err_b128
 
 
 def sim_phase(gen, dev):
@@ -1110,7 +1397,368 @@ def fused_resnet_phase(gen, dev):
     return summary, split, total, path
 
 
+def near_win(env, dev):
+    """A board where player 0, to move, completes a line with one stone:
+    ``(board, move count, (row, col) of the winning stone)``.  connect4
+    player 0's three on the bottom row, player 1's three on top of them;
+    tictactoe X X . / O O . / . . .; gomoku four stones of player 0 on the
+    middle row, player 1's four on the row below, not in a line."""
+    R = env.rows
+    b = torch.zeros((2, R, env.cols), dtype=torch.int8)
+    if env.name == "connect4":
+        b[0, R - 1, :3] = 1
+        b[1, R - 2, :3] = 1
+        return b.to(dev), 6, (R - 1, 3)
+    if env.name == "tictactoe":
+        b[0, 0, :2] = 1
+        b[1, 1, :2] = 1
+        return b.to(dev), 4, (0, 2)
+    b[0, R // 2, 1:5] = 1
+    b[1, R // 2 + 1, [0, 2, 4, 6]] = 1
+    return b.to(dev), 8, (R // 2, 5)
+
+
+def chunk_roots(env, B, gen, dev):
+    """Chunk roots for any game: random play (finished games reset to an
+    empty board), every fourth game an empty board with player 0 to move
+    (gomoku's centre rule) and every fourth one move from a win
+    (:func:`near_win`)."""
+    st = random_positions(env, B, gen, dev)
+    board = torch.where(st.done[:, None, None, None], 0, st.board)
+    player = torch.where(st.done, 0, st.current_player)
+    mc = torch.where(st.done, 0, st.move_count)
+    board[0::4], player[0::4], mc[0::4] = 0, 0, 0
+    nw, nw_mc, _ = near_win(env, dev)
+    board[1::4], player[1::4], mc[1::4] = nw, 0, nw_mc
+    return board.contiguous(), player.contiguous(), mc.contiguous()
+
+
+def chunk_bitwise(env, mcfg, B, M, gen, dev):
+    """The chunk's search kernels against the plain chunk, bit for bit,
+    under the exact stub at B games, S = mcfg.num_simulations, M moves,
+    with Dirichlet noise and temperature sampling (both fed the same draws)
+    on :func:`chunk_roots`.  Fails on a difference or an illegal opening;
+    returns the phase's numbers."""
+    from alphazero_tpu_torch.search import fused
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    if not (mcfg.use_dirichlet and mcfg.temperature_moves > 0):
+        fail(f"{env.name} chunk: Dirichlet and temperature sampling expected")
+    A, S = env.action_dim, mcfg.num_simulations
+    board, player, mc = chunk_roots(env, B, gen, dev)
+    noise = fused.dirichlet_noise(M, A, B, mcfg.dirichlet_alpha, gen, dev)
+    unif = torch.rand((M, B), generator=gen, device=dev)
+    kw = dict(noise=noise, unif=unif, evaluator=exact_stub_evaluator(env))
+    t0 = time.perf_counter()
+    got = fused.run_selfplay_chunk(env, None, None, board, player, mc, mcfg,
+                                   M, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fused.selfplay_chunk_reference(env, None, None, board, player, mc,
+                                          mcfg, M, **kw)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    sampled = int((got["action"] != got["policy"].argmax(-1)).sum())
+    won_first = int((got["done"][0, 1::4] & (got["winner"][0, 1::4] == 0)
+                     ).sum())
+    log(f"[{env.name} chunk] B={B} S={S} M={M} Dirichlet+temperature, exact "
+        f"stub: {len(want)} record arrays, mismatched {bad or 'none'}; "
+        f"{sampled} sampled non-argmax actions, {int(got['done'].sum())} "
+        f"games finished, {won_first} of {B // 4} near-win roots won on "
+        f"their first move; kernel chunk {t_kern:.2f} s, plain chunk "
+        f"{t_plain:.2f} s")
+    if bad:
+        fail(f"{env.name}: search kernels differ from the plain chunk in {bad}")
+    if env.name.startswith("gomoku"):
+        centre = (env.rows // 2) * env.cols + env.cols // 2
+        if not bool((got["action"][0, 0::4] == centre).all()):
+            fail(f"{env.name}: an empty board did not open in the centre")
+    return dict(batch=B, num_simulations=S, moves=M, seconds=t_kern,
+                plain_seconds=t_plain, sampled=sampled,
+                finished=int(got["done"].sum()), near_win_won=won_first)
+
+
+def check_chunk_records(env, recs):
+    """Checks on every move of the captured chunk records ``recs``: each
+    action legal on the board before it (the env's mask), the first
+    move of a game in the centre (gomoku), a winner exactly where the
+    mover's stones then hold a line, a game done exactly where it was won
+    or the board is full.  Returns ``{check: bool}``."""
+    R, C, RC = env.rows, env.cols, env.rows * env.cols
+    ok = {"legal moves only": True, "first move in the centre": True,
+          "winners hold a line, and only they": True,
+          "done = won or board full": True}
+    for rec in recs:
+        M, B = rec["action"].shape
+        obs = rec["obs"][:, :, :2].reshape(M * B, 2, R, C)
+        act = rec["action"].reshape(-1).long()
+        ar = torch.arange(M * B, device=act.device)
+        legal = env.valid_mask_board(obs, None)[ar, act]
+        ok["legal moves only"] &= bool(legal.all())
+        t = rec["t"].reshape(-1)
+        if env.name.startswith("gomoku"):
+            centre = (R // 2) * C + C // 2
+            ok["first move in the centre"] &= bool(
+                (act[t == 0] == centre).all())
+        mine = obs[:, 0].reshape(M * B, RC).clone()
+        mine[ar, act] = 1
+        won = env.won_batch(mine.reshape(M * B, R, C))
+        winner = rec["winner"].reshape(-1)
+        ok["winners hold a line, and only they"] &= bool(
+            torch.equal(won, winner >= 0)
+            and (winner[won] == rec["player"].reshape(-1)[won]).all())
+        ok["done = won or board full"] &= bool(torch.equal(
+            rec["done"].reshape(-1), won | (t + 1 >= env.max_moves)))
+    return ok
+
+
+def won_roots(env, st, idx):
+    """Games ``idx`` of ``st`` replaced by a won position: player 0's line
+    completed, player 1 to move."""
+    won, mc, (r, c) = near_win(env, st.board.device)
+    won[0, r, c] = 1
+    st.board[idx] = won
+    st.current_player[idx], st.move_count[idx] = 1, mc + 1
+    st.done[idx], st.winner[idx] = True, 0
+    return st
+
+
+def dense_games_phase(gen, dev):
+    """Phase 11: the dense tower's searches off connect4.  The forward at
+    gomoku9-dense's width with A=81 and a dense tictactoe tower; the chunk
+    bitwise at gomoku9-dense and tictactoe; the move search bitwise at
+    gomoku9; ``Trainer(preset("gomoku9-dense")).iterate(vanilla_eval=False)``
+    at full width with launches per phase and checks on every move of its
+    chunks; each search kernel against its plain version on its self-play
+    snapshot and the gate's batch; one chunk and one gate move profiled.
+    Returns the phase's summary."""
+    from alphazero_tpu_torch.config import ModelConfig, preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    from alphazero_tpu_torch.search import fused
+    from alphazero_tpu_torch.search.mcts import run_mcts
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    from alphazero_tpu_torch.training import Trainer, selfplay
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
+    t_phase = time.perf_counter()
+    cfg = preset("gomoku9-dense")
+    env = make_env(cfg.env)
+    mcfg = cfg.mcts
+    S, A = mcfg.num_simulations, env.action_dim
+    B, Bg = cfg.train.selfplay_batch, cfg.train.gate_games // 2
+    out_ = {"preset": "gomoku9-dense", "batch": B, "num_simulations": S}
+
+    # ---- a. the forward kernel at A=81 (and a dense tictactoe tower)
+    fwd = {}
+    for game, mcfg_model, batches, sweep in (
+            ("gomoku9", cfg.model, (B, Bg, 1, 17, 129), (B, Bg)),
+            ("tictactoe", ModelConfig(family="dense", width=512, blocks=2),
+             (256, 1, 17), ())):
+        genv = make_env(game)
+        model = build_model(mcfg_model, genv).to(dev)
+        params = {k: v.to(dev) for k, v in init_params(
+            model, torch.Generator().manual_seed(0)).items()}
+        packed = fused.pack_dense_params(model, params, dev)
+        fwd[game] = forward_by_batch(genv, model, params, packed, batches,
+                                     sweep, gen, dev)
+        if game == "gomoku9":            # per call and bound at B=256, A=81
+            obs = genv.observation(random_positions(genv, B, gen, dev)
+                                   ).reshape(B, -1).contiguous()
+            ms_k, ms_p = alternate(
+                lambda: fused.dense_forward(obs, packed),
+                lambda: fused.dense_forward_reference(obs, packed))
+            kin, D = packed["kin"], model.width
+            DV, nb = D // 4, model.blocks
+            b_ms, b_by = bound(
+                nbytes(*(v for v in packed.values() if torch.is_tensor(v)))
+                + nbytes(obs) + B * (A + 1) * 4,
+                2.0 * B * (kin * D + nb * 2 * D * D + D * DV),
+                2.0 * B * (D * A + DV))
+            dense11 = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=max(
+                               v["max_abs_err"] for v in fwd[game].values()))
+            log(f"[forward] gomoku9 B={B}: per call kernel wrapper "
+                f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by})")
+    out_["forward"] = fwd
+
+    # ---- b. the chunk, bit for bit, at gomoku9-dense and tictactoe
+    ttt = make_env("tictactoe")
+    out_["chunk_bitwise"] = {
+        "gomoku9": chunk_bitwise(env, mcfg, B, 2, gen, dev),
+        "tictactoe": chunk_bitwise(ttt, preset("tictactoe").mcts, 256, 4,
+                                   gen, dev)}
+
+    # ---- c. the move search, bit for bit, at gomoku9 B=128, S=400
+    st = won_roots(env, with_drawn_game(random_positions(env, Bg, gen, dev),
+                                        env),
+                   slice(Bg // 2, Bg // 2 + max(1, min(8, Bg // 8))))
+    margs = (st.board, st.current_player, st.move_count, st.done)
+    won = st.done & (st.winner >= 0)
+    drawn = st.done & (st.winner < 0)
+    noise = fused.dirichlet_noise(1, A, Bg, mcfg.dirichlet_alpha, gen,
+                                  dev)[0].T.contiguous()
+    stub = exact_stub_evaluator(env)
+    root_stub = lambda o: stub(o.reshape(o.shape[0], -1))  # noqa: E731
+    t0 = time.perf_counter()
+    got = fused.run_mcts_fused(env, None, None, root_stub, *margs, mcfg,
+                               noise=noise, evaluator=stub, device=dev)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fused.move_search_reference(env, None, None, root_stub, *margs,
+                                       mcfg, noise=noise, evaluator=stub)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    bad = [k for k in ("visit_counts", "policy", "root_q")
+           if not torch.equal(getattr(got, k), getattr(want, k))]
+    sums = got.visit_counts.sum(-1)
+    log(f"[gomoku9 move search] B={Bg} S={S} Dirichlet, exact stub, "
+        f"{int((~st.done).sum())} live / {int(won.sum())} won / "
+        f"{int(drawn.sum())} drawn roots: mismatched {bad or 'none'}; kernel "
+        f"search {t_kern:.2f} s, plain search {t_plain:.2f} s")
+    if bad:
+        fail(f"gomoku9 move search kernels differ from the plain search in "
+             f"{bad}")
+    checks = {
+        "live roots count S-1 visits": bool((sums[~st.done] == S - 1).all()),
+        "finished roots count none": bool((sums[st.done] == 0).all()),
+        "won roots: root Q (S-1)/S": bool(won.any()) and bool(
+            (got.root_q[won] == torch.tensor((S - 1) / S, device=dev)).all()),
+        "the drawn root: root Q 0": bool(drawn.any()) and bool(
+            (got.root_q[drawn] == 0).all()),
+    }
+    out_["move_search_bitwise"] = dict(batch=Bg, seconds=t_kern,
+                                       plain_seconds=t_plain)
+
+    # ---- d. the path: one outer iteration at full width
+    tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
+    split, trace, recs = {}, [], []
+    launch_counts = counted_phases(tr, ("collect", "train_epoch", "gate"),
+                                   fused.KERNELS, split)
+    real_chunk = selfplay.run_selfplay_chunk
+
+    def captured_chunk(*a, **kw):
+        rec = real_chunk(*a, **kw)
+        recs.append({k: rec[k] for k in ("obs", "action", "t", "player",
+                                         "done", "winner")})
+        return rec
+
+    def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
+                        **kw):
+        res = run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_, **kw)
+        trace.append((dones, res.visit_counts))
+        return res
+
+    selfplay.run_selfplay_chunk, arena.run_mcts = captured_chunk, \
+        traced_run_mcts
+    for k in fused.KERNELS:
+        k.launches = 0
+    try:
+        it = tr.iterate(vanilla_eval=False)
+    finally:
+        selfplay.run_selfplay_chunk, arena.run_mcts = real_chunk, run_mcts
+    total = launch_counts()
+    split = {p: dict(c) for p, c in split.items()}   # the later collect
+    chunks = len(it["chunk_seconds"])
+    M = cfg.train.selfplay_chunk_steps or 32
+    searches = 2 * env.max_moves
+    expect = {
+        "collect": {"az_dense_forward": chunks * M * S,
+                    "az_root_obs": chunks * M, "az_root_init": chunks * M,
+                    "az_descend_leaf": chunks * M * (S - 1),
+                    "az_apply": chunks * M * (S - 1),
+                    "az_move_tail": chunks * M, "az_move_root_init": 0,
+                    "az_root_counts": 0},
+        "train_epoch": {k: 0 for k in total},
+        "gate": {k: 0 for k in total}}
+    expect["gate"].update({
+        "az_dense_forward": searches * (S - 1),
+        "az_descend_leaf": searches * (S - 1),
+        "az_apply": searches * (S - 1),
+        "az_move_root_init": searches, "az_root_counts": searches})
+    log(f"[gomoku9-dense iterate] Trainer(preset('gomoku9-dense'))"
+        f".iterate(vanilla_eval=False): launches {total}; measured per "
+        f"phase {split}")
+    if split != expect:
+        fail(f"gomoku9-dense launches per phase {split} != expected {expect}")
+    rate = M * B / statistics.median(it["chunk_seconds"])
+    log(f"[gomoku9-dense iterate] collect {it['collect_seconds']:.3f} s "
+        f"({chunks} chunks {it['chunk_seconds']}, {it['games']} games, "
+        f"{rate:.1f} env-steps/s at B={B}, S={S}); train "
+        f"{it['train_seconds']:.3f} s ({it['steps']} steps, loss "
+        f"{it['loss']:.4f}); gate {it['gate_seconds']:.3f} s (score "
+        f"{tr.last_gate_score}, accepted {it['accepted']})")
+    checks.update(check_chunk_records(env, recs))
+    checks.update({
+        "collect ran >= 2 chunks": chunks >= 2,
+        "gate score sums to the game count": sum(
+            tr.last_gate_score[:2]) == cfg.train.gate_games,
+        "every gate search recorded": len(trace) == searches,
+        "gate: live roots count S-1 visits": all(
+            bool((c.sum(-1)[~d] == S - 1).all()) for d, c in trace),
+        "gate: finished roots count none": all(
+            bool((c.sum(-1)[d] == 0).all()) for d, c in trace),
+        "finite losses": all(math.isfinite(it[k]) for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+        "every kernel launched": all(v > 0 for v in total.values()),
+    })
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("gomoku9-dense phase checks failed")
+
+    # ---- e. each search kernel against its plain version: the self-play
+    # snapshot (B=256) and the gate's batch (B=128), real weights
+    log("[gomoku9-dense] each kernel against its plain version: a self-play "
+        f"snapshot (B={B}) and a gate search (B={Bg})")
+    kern = chunk_kernels_phase(env, mcfg, tr, gen, dev)
+    ms_move, err_move = move_kernels_phase(env, mcfg, tr.model,
+                                           tr.params_best, margs, noise, dev)
+    kern.update(ms_move)
+    dense11["max_abs_err"] = max(dense11["max_abs_err"], err_move)
+    kern["az_dense_forward"] = dense11
+
+    # ---- f. one chunk and one gate move (both agents, B=128), profiled
+    med = statistics.median(it["chunk_seconds"])
+    chunk_us = print_profile(
+        "gomoku9-dense, one chunk",
+        device_profile(lambda: tr.collect(games_target=0)), med * 1e3)
+    st_g = random_positions(env, cfg.train.gate_games, gen, dev)
+    agents = (make_eval_fn(tr.model, tr.params_best),
+              make_eval_fn(tr.model, tr.params_new))
+
+    def gate_move():
+        for fn, sl in zip(agents, (slice(0, Bg), slice(Bg, None))):
+            run_mcts(env, fn, st_g.board[sl], st_g.current_player[sl],
+                     st_g.move_count[sl], st_g.done[sl], mcfg, generator=gen,
+                     device=dev)
+
+    gate_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate_move()
+    torch.cuda.synchronize()
+    gate_wall = (time.perf_counter() - t0) * 1e3
+    gate_us = print_profile(f"gomoku9-dense, one gate move (2 x B={Bg})",
+                            device_profile(gate_move), gate_wall)
+    seconds = time.perf_counter() - t_phase
+    log(f"[gomoku9-dense] phase 11 took {seconds:.1f} s")
+    out_.update(env_steps_per_s=rate,
+                chunk_seconds=it["chunk_seconds"], iterate={
+                    k: it[k] for k in ("collect_seconds", "train_seconds",
+                                       "gate_seconds", "steps", "games",
+                                       "loss", "gate_rate", "accepted")},
+                gate_score=tr.last_gate_score, gate_move_ms=gate_wall,
+                launches_by_phase=split, phase_seconds=seconds)
+    return out_, kern, total, split, chunk_us, gate_us
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1123,7 +1771,7 @@ def main():
                                             make_eval_fn)
     from alphazero_tpu_torch.ops import build
     from alphazero_tpu_torch.search import fused, sim
-    from alphazero_tpu_torch.search.mcts import root_prior, run_mcts
+    from alphazero_tpu_torch.search.mcts import run_mcts
     from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.training import Trainer
     from alphazero_tpu_torch.utils.metrics import MetricsLogger
@@ -1197,99 +1845,15 @@ def main():
     # self-play's and the gate's batches and ragged ones: error, launch
     # geometry, and the device time of the kernel and of the eager module
     # (models/dense.py through make_eval_fn), both by device_ms
-    eager_dense = make_eval_fn(model, params)
-    by_batch = {}
-    for Bx in (B, cfg.train.gate_games // 2, 1, 17, 129):
-        ox = env.observation(random_positions(env, Bx, gen, dev))
-        flat = ox.reshape(Bx, -1).contiguous()
-        pk, vk = fused.dense_forward(flat, packed)
-        pp, vp = fused.dense_forward_reference(flat, packed)
-        torch.cuda.synchronize()
-        err = torch.cat([(pk - pp).abs().reshape(-1), (vk - vp).abs()])
-        e_max, share = float(err.max()), float((err <= 1e-3).float().mean())
-        ok = (bool(torch.isfinite(err).all()) and e_max <= TOL_FWD_MAX
-              and share >= TOL_FWD_FRAC)
-        geo = fused.dense_geometry(Bx, packed)
-        # device times: the kernel, the eager module; at the main path's
-        # batches also the other tiles and the launch with 0 and 1 of the 2
-        # blocks (the fixed cost: input, stem, final LayerNorm, heads; and
-        # the cost per block)
-        runs = [("kernel", lambda: fused.dense_forward(flat, packed), 20),
-                ("eager", lambda: eager_dense(ox), 5)]
-        if Bx in (B, cfg.train.gate_games // 2):
-            for tg in fused.dense_tiles(*fused._dense_widths(packed)):
-                def run_tile(tg=tg):
-                    with planned(fused, "dense_plan",
-                                 lambda *a: {"games_per_tile": tg}):
-                        fused.dense_forward(flat, packed)
-
-                runs.append((f"tile {tg}", run_tile, 10))
-            for nb_cut in range(model.blocks):
-                cut = dict(packed, **{k: packed[k][:nb_cut].contiguous()
-                                      for k in ("ln_s", "ln_b", "w1", "b1",
-                                                "w2", "b2")})
-                runs.append((f"blocks {nb_cut}",
-                             lambda cut=cut: fused.dense_forward(flat, cut),
-                             10))
-        dev_t = device_ms(runs)
-
-        def kern(name):
-            return None if dev_t[name] is None else dev_t[name] * 1e3
-
-        k_us, e_dev = kern("kernel"), dev_t["eager"]
-        alts = {int(n[5:]): kern(n) for n, _, _ in runs
-                if n.startswith("tile ")}
-        depth = {int(n[7:]): kern(n) for n, _, _ in runs
-                 if n.startswith("blocks ")}
-        if depth:
-            depth[model.blocks] = k_us
-        log(f"[forward] B={Bx}: max abs err {e_max:.3e}, share within 1e-3 "
-            f"{share:.4f} -> {'ok' if ok else 'FAIL'}; geometry {geo}; "
-            f"device per launch {k_us} us; eager module device "
-            f"{e_dev} ms per call; device us per launch by games per tile "
-            f"{alts}, by blocks {depth}")
-        if not ok:
-            fail(f"forward kernel disagrees with its plain version at B={Bx}")
-        by_batch[str(Bx)] = dict(max_abs_err=e_max, share_within_1e3=share,
-                                 device_us=k_us, eager_device_ms=e_dev,
-                                 geometry=geo, device_us_by_tile=alts,
-                                 device_us_by_blocks=depth)
+    by_batch = forward_by_batch(env, model, params, packed,
+                                (B, cfg.train.gate_games // 2, 1, 17, 129),
+                                (B, cfg.train.gate_games // 2), gen, dev)
     summary["az_dense_forward"]["by_batch"] = by_batch
 
     # ---- 3. search kernels vs the plain chunk, bitwise (exact stub)
-    M3 = 4
     mcfg = cfg.mcts
-    if not (mcfg.use_dirichlet and mcfg.temperature_moves == 8):
-        fail("phase 3 expects Dirichlet on and temperature_moves=8")
-    st3 = random_positions(env, B, gen, dev)
-    live = ~st3.done
-    board3 = torch.where(live[:, None, None, None], st3.board, 0)
-    player3 = torch.where(live, st3.current_player, 0)
-    mc3 = torch.where(live, st3.move_count, 0)
-    noise = fused.dirichlet_noise(M3, A, B, mcfg.dirichlet_alpha, gen, dev)
-    unif = torch.rand((M3, B), generator=gen, device=dev)
+    chunk_bitwise(env, mcfg, B, 4, gen, dev)
     stub = exact_stub_evaluator(env)
-    t0 = time.perf_counter()
-    got = fused.run_selfplay_chunk(env, None, None, board3, player3, mc3, mcfg,
-                                   M3, noise=noise, unif=unif, evaluator=stub,
-                                   device=dev)
-    torch.cuda.synchronize()
-    t_kern = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    want = fused.selfplay_chunk_reference(env, None, None, board3, player3,
-                                          mc3, mcfg, M3, noise=noise,
-                                          unif=unif, evaluator=stub)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    bad = [k for k in want if not torch.equal(got[k], want[k])]
-    sampled = int((got["action"] != got["policy"].argmax(-1)).sum())
-    log(f"[chunk] B={B} S={S} M={M3} Dirichlet+temperature, exact stub: "
-        f"{len(want)} record arrays, mismatched {bad or 'none'}; "
-        f"{sampled} sampled non-argmax actions, "
-        f"{int(got['done'].sum())} games finished; kernel chunk "
-        f"{t_kern:.2f} s, plain chunk {t_plain:.2f} s")
-    if bad:
-        fail(f"search kernels differ from the plain chunk in {bad}")
 
     # ---- 4. the main path
     tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
@@ -1353,128 +1917,7 @@ def main():
                            med * 1e3)
 
     # ---- 5. search kernels vs plain versions on a main-path move
-    sp = tr.sp
-    board = sp.env_state.board.clone()
-    player = sp.env_state.current_player.clone()
-    mc = sp.env_state.move_count.clone()
-    N, dcap = S + 1, int(min(env.max_moves + 1, S + 1))
-    tree = fused.Tree(env, B, S, dev)
-    rec_obs = torch.zeros((B, F, env.rows, env.cols), dtype=torch.int8,
-                          device=dev)
-    packed = fused.pack_dense_params(tr.model, tr.params_best, dev)
-    noise_m = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen, dev)[0]
-    u = torch.rand((B,), generator=gen, device=dev)
-
-    # root observation and tree init at the start of the move
-    base = {"board": board, "player": player, "rec": rec_obs}
-    ms = compare("az_root_obs",
-                 lambda s: fused.root_obs(env, s["board"], s["player"], s["rec"]),
-                 lambda s: fused.root_obs_reference(env, s["board"], s["player"],
-                                                    s["rec"]),
-                 base, [out(lambda s, r: r, "obs"),
-                        out(lambda s, r: s["rec"], "rec_obs")])
-    b_ms, b_by = bound(nbytes(board, player) + B * F * RC * 5)
-    summary["az_root_obs"] = dict(**ms, bound_ms=b_ms,
-                                  bound_by=b_by)
-    obs0 = fused.root_obs(env, board, player, rec_obs)
-    probs0, value0 = fused.dense_forward(obs0, packed)
-    tree_fields = ("visit", "val", "child", "prior")
-    state = {"tree": tree, "probs": probs0, "value": value0, "noise": noise_m,
-             "board": board}
-
-    ms = compare("az_root_init",
-                 lambda s: fused.root_init(env, mcfg, s["tree"], s["probs"],
-                                           s["value"], s["noise"], s["board"]),
-                 lambda s: fused.root_init_reference(
-                     env, mcfg, s["tree"], s["probs"], s["value"], s["noise"],
-                     s["board"]),
-                 tree_clone(state),
-                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
-                  for f in tree_fields])
-    b_ms, b_by = bound(nbytes(probs0, value0, noise_m, board)
-                       + 2 * B * N * 4 + B * A * 8, f32_ops=4.0 * B * A)
-    summary["az_root_init"] = dict(**ms, bound_ms=b_ms,
-                                   bound_by=b_by)
-    fused.root_init(env, mcfg, tree, probs0, value0, noise_m, board)
-    half = S // 2
-    for slot in range(1, half):
-        fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
-        p, v = fused.dense_forward(tree.obs, packed)
-        fused.apply(tree, slot, p, v)
-    # descend at slot S/2
-    dstate = {"tree": tree, "board": board, "player": player, "mc": mc}
-    ms = compare("az_descend_leaf",
-                 lambda s: fused.descend_leaf(env, mcfg, s["tree"], s["board"],
-                                              s["player"], s["mc"], half),
-                 lambda s: fused.descend_leaf_reference(
-                     env, mcfg, s["tree"], s["board"], s["player"], s["mc"],
-                     half),
-                 tree_clone(dstate),
-                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
-                  for f in ("path", "apath", "pend", "valid", "obs")],
-                 preps=2)
-    fused.descend_leaf(env, mcfg, tree, board, player, mc, half)
-    depth = tree.pend[:, fused.P_DEPTH].long()
-    steps = int(depth.sum())
-    path_nodes = tree.path.long().clamp(max=N - 1)
-    on_path = torch.arange(dcap, device=dev)[None] < depth[:, None]
-    kids = (tree.child[torch.arange(B, device=dev)[:, None], path_nodes] >= 0
-            ).sum(-1)
-    n_kids = int(kids[on_path].sum())
-    d_bytes = (steps * A * 8 + n_kids * 8 + nbytes(board, player, mc)
-               + 2 * B * dcap * 4 + B * 28 + B * A + B * F * RC * 4)
-    b_ms, b_by = bound(d_bytes, f32_ops=steps * A * 8.0)
-    summary["az_descend_leaf"] = dict(**ms, bound_ms=b_ms,
-                                      bound_by=b_by)
-    log(f"  descend at slot {half}: {steps} walk steps over {B} games "
-        f"(deepest {int(depth.max())}), {n_kids} child reads")
-    p, v = fused.dense_forward(tree.obs, packed)
-    ms = compare("az_apply",
-                 lambda s: fused.apply(s["tree"], half, s["p"], s["v"]),
-                 lambda s: fused.apply_reference(s["tree"], half, s["p"], s["v"]),
-                 tree_clone({"tree": tree, "p": p, "v": v}),
-                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
-                  for f in tree_fields], preps=2)
-    plies = int((depth + 1).sum())
-    a_bytes = (nbytes(p, v, tree.pend, tree.valid) + plies * (4 + 16)
-               + B * A * 8 + B * 4)
-    b_ms, b_by = bound(a_bytes, f32_ops=2.0 * plies)
-    summary["az_apply"] = dict(**ms, bound_ms=b_ms,
-                               bound_by=b_by)
-    fused.apply(tree, half, p, v)
-    for slot in range(half + 1, S):
-        fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
-        p, v = fused.dense_forward(tree.obs, packed)
-        fused.apply(tree, slot, p, v)
-    rec = {"policy": torch.zeros((B, A), device=dev)}
-    for k in ("player", "t", "action", "winner"):
-        rec[k] = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rec["done"] = torch.zeros((B,), dtype=torch.bool, device=dev)
-    rec["root_q"] = torch.zeros((B,), device=dev)
-    tstate = {"tree": tree, "u": u, "board": board, "player": player,
-              "mc": mc, **{f"rec_{k}": v for k, v in rec.items()}}
-
-    def recs(s):
-        return {k: s[f"rec_{k}"] for k in rec}
-
-    ms = compare("az_move_tail",
-                 lambda s: fused.move_tail(env, mcfg, s["tree"], s["u"],
-                                           s["board"], s["player"], s["mc"],
-                                           recs(s)),
-                 lambda s: fused.move_tail_reference(
-                     env, mcfg, s["tree"], s["u"], s["board"], s["player"],
-                     s["mc"], recs(s)),
-                 tree_clone(tstate),
-                 [out(lambda s, r, k=k: s[k], k) for k in
-                  ("board", "player", "mc")]
-                 + [out(lambda s, r, k=k: s[f"rec_{k}"], f"rec_{k}")
-                    for k in rec])
-    t_bytes = (B * A * 4 * 2 + B * 8 * 2 + nbytes(u) + 2 * nbytes(board)
-               + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1))
-    b_ms, b_by = bound(t_bytes, f32_ops=4.0 * B * A)
-    summary["az_move_tail"] = dict(**ms, bound_ms=b_ms,
-                                   bound_by=b_by)
-    torch.cuda.synchronize()
+    summary.update(chunk_kernels_phase(env, mcfg, tr, gen, dev))
 
     # ---- 6. the move search (kernel 2) vs its plain version, bitwise
     Bg = cfg.train.gate_games // 2           # each agent's half of the gate
@@ -1520,60 +1963,13 @@ def main():
 
     # az_move_root_init and az_root_counts on a main-path snapshot: the
     # gate's half batch, the trainer's weights, the real forward
-    root_fn = make_eval_fn(tr.model, tr.params_best)
-    use6 = torch.ones(Bg, dtype=torch.bool, device=dev)
-    rp, v0, live6 = root_prior(env, mcfg, root_fn, *margs, use6, noise6)
-    tree6 = fused.Tree(env, Bg, S, dev)
-    ms = compare("az_move_root_init",
-                 lambda s: fused.move_root_init(s["tree"], s["rp"], s["v"],
-                                                s["live"]),
-                 lambda s: fused.move_root_init_reference(
-                     s["tree"], s["rp"], s["v"], s["live"]),
-                 tree_clone({"tree": tree6, "rp": rp, "v": v0,
-                             "live": live6}),
-                 [out(lambda s, r, f=f: getattr(s["tree"], f), f)
-                  for f in tree_fields])
-    b_ms, b_by = bound(nbytes(rp, v0, live6) + 2 * Bg * N * 4 + Bg * A * 8,
-                       f32_ops=4.0 * Bg * A)
-    summary["az_move_root_init"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
-    # the search with the real forward kernel, held against its plain
-    # version at the gate's shape on every simulation
-    fwd_err = []
-
-    def checked_forward(o):
-        pk, vk = fused.dense_forward(o, packed)
-        pp, vp = fused.dense_forward_reference(o, packed)
-        if not (torch.isfinite(pk).all() and torch.isfinite(vk).all()):
-            fail(f"forward kernel at B={Bg}: non-finite output")
-        fwd_err.append(torch.cat([(pk - pp).abs().reshape(-1),
-                                  (vk - vp).abs()]))
-        return pk, vk
-
-    tree6 = fused._move_tree(fused.DISPATCH, env, mcfg, root_fn, *margs,
-                             use6, noise6, checked_forward)
-    err = torch.cat(fwd_err)
-    err_b128 = float(err.max())
-    frac = float((err <= 1e-3).float().mean())
-    ok = err_b128 <= TOL_FWD_MAX and frac >= TOL_FWD_FRAC
-    log(f"[forward] B={Bg}, the {len(fwd_err)} simulations of a move search: "
-        f"max abs err {err_b128:.3e} (tol {TOL_FWD_MAX}), share within 1e-3 "
-        f"{frac:.4f} (tol {TOL_FWD_FRAC}) -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail(f"forward kernel disagrees with its plain version at B={Bg}")
+    ms6, err_b128 = move_kernels_phase(env, mcfg, tr.model, tr.params_best,
+                                       margs, noise6, dev)
+    summary.update(ms6)
     fwd = summary["az_dense_forward"]
     fwd["max_abs_err_by_batch"] = {str(B): fwd["max_abs_err"],
                                    str(Bg): err_b128}
     fwd["max_abs_err"] = max(fwd["max_abs_err"], err_b128)
-    ms = compare("az_root_counts", lambda s: fused.root_counts(s["tree"]),
-                 lambda s: fused.root_counts_reference(s["tree"]),
-                 tree_clone({"tree": tree6}),
-                 [out(lambda s, r, i=i: r[i], name) for i, name in
-                  enumerate(("counts", "policy", "root_q"))])
-    n_kids = int((tree6.child[:, 0] >= 0).sum())
-    b_ms, b_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
-                       + Bg * 4, f32_ops=float(Bg * A + Bg))
-    summary["az_root_counts"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
-
     # ---- 7. the main path's outer iteration
     tr7 = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     init7 = {k: v.clone() for k, v in tr7.params_best.items()}
@@ -1691,6 +2087,10 @@ def main():
     # ---- 10. the fused ResNet tower behind the port's CLI
     summary10, split10, total10, path10 = fused_resnet_phase(gen, dev)
 
+    # ---- 11. the dense tower's searches off connect4 (gomoku9-dense)
+    path11, kern11, total11, split11, chunk_us11, gate_us11 = \
+        dense_games_phase(gen, dev)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -1708,7 +2108,17 @@ def main():
             "ms": (gate_ms if new else dev_ms).get(k.name),
             "gate_ms": gate_ms.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None})
+            "bound_by": s["bound_by"], "library_ms": None,
+            "games": ["connect4", "tictactoe", "gomoku9"],
+            "by_path": {"gomoku9-dense": {
+                "launches": total11[k.name],
+                "launches_collect": split11["collect"][k.name],
+                "launches_gate": split11["gate"][k.name],
+                "ms": (gate_us11 if new else chunk_us11).get(k.name),
+                "gate_ms": gate_us11.get(k.name),
+                "call_ms": kern11[k.name]["ms"],
+                **{f: kern11[k.name][f] for f in (
+                    "max_abs_err", "plain_ms", "bound_ms", "bound_by")}}}})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({
@@ -1722,7 +2132,8 @@ def main():
             "ms": sp_ms9.get(k.name),
             "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None})
+            "bound_by": s["bound_by"], "library_ms": None,
+            "games": ["connect4", "tictactoe"]})
     s = summary10["az_resnet_tower"]
     kernels.append({
         "name": "az_resnet_tower", "route": "cuda",
@@ -1735,7 +2146,8 @@ def main():
         "gate_ms": s["gate_ms"], "call_ms": s["call_ms"],
         "plain_ms": s["plain_ms"],
         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": None, "eager_forward_ms": s["eager_forward_ms"],
+        "library_ms": None, "games": ["connect4", "gomoku9"],
+        "eager_forward_ms": s["eager_forward_ms"],
         "by_shape": s["by_shape"]})
     log(json.dumps({"main_path": {
         "preset": "connect4", "batch": B, "num_simulations": S,
@@ -1755,6 +2167,8 @@ def main():
         "launches_by_phase": split9, "selfplay_move_ms": sp_wall9,
         "gate_move_ms": gate_wall9}}))
     log(json.dumps({"fused_resnet_path": path10}))
+    log(json.dumps({"gomoku9_dense_path": path11}))
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

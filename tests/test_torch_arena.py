@@ -57,7 +57,7 @@ def test_arena_same_winners_and_score_as_jax(monkeypatch):
     env = make_env("connect4")
     kernel_stub, xla_eval = _exact_stub_forwards(env)
     monkeypatch.setattr(F, "_leaf_eval", kernel_stub)
-    model = build_model(ModelConfig(family="dense", width=32, blocks=1), env)
+    model = build_model(ModelConfig(family="dense", width=64, blocks=1), env)
     params = init_params(model, env, jax.random.PRNGKey(0))
 
     def fused_run_mcts(env_, eval_fn, boards, players, mcs, dones, rng, cfg,
@@ -91,7 +91,7 @@ def test_arena_same_winners_and_score_as_jax(monkeypatch):
     tenv = make_tenv("connect4")
     stub = exact_stub_evaluator(tenv)
     monkeypatch.setattr(tfused, "dense_forward", lambda obs, packed: stub(obs))
-    tmodel = build_tmodel(tcfg.ModelConfig(family="dense", width=32,
+    tmodel = build_tmodel(tcfg.ModelConfig(family="dense", width=64,
                                            blocks=1), tenv)
     eval_fn = make_teval_fn(tmodel, params_from_flax(
         jax.tree.map(np.asarray, params)))
@@ -132,7 +132,7 @@ def test_compare_draws_its_own_noise_on_cpu():
     """Without ``draws`` the match draws from its generator: the same seed
     gives the same match, and every game is decided or drawn."""
     tenv = make_tenv("connect4")
-    tmodel = build_tmodel(tcfg.ModelConfig(family="dense", width=16,
+    tmodel = build_tmodel(tcfg.ModelConfig(family="dense", width=64,
                                            blocks=1), tenv)
     from alphazero_tpu_torch.models import init_params as tinit
     params = tinit(tmodel, torch.Generator().manual_seed(0))

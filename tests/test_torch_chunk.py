@@ -128,14 +128,41 @@ def test_chunk_reference_bitwise_vs_jax_chunk_kernel(monkeypatch, case):
         assert (want["action"] != greedy).any()
 
 
-def test_game_tables_match_jax():
-    want = F._game_tables(make_env("connect4"))
-    got = game_tables(make_tenv("connect4"))
+@pytest.mark.parametrize("game", ["connect4", "tictactoe", "gomoku",
+                                  "gomoku9", "gomoku15"])
+def test_game_tables_match_jax(game):
+    """``aux``, ``W`` and the lines as JAX's ``_game_tables``; the env's
+    ``valid_mask_board``, which the plain search versions use off
+    connect4, is JAX's in-kernel rule (the ``aux`` product, the centre on
+    an empty board) on random boards."""
+    env, tenv = make_env(game), make_tenv(game)
+    want = F._game_tables(env)
+    got = game_tables(tenv)
     for k in ("W", "aux"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    W = want["W"]
     for j, cells in enumerate(got["lines"]):
-        np.testing.assert_array_equal(np.nonzero(W[:, j])[0], cells)
+        np.testing.assert_array_equal(np.nonzero(want["W"][:, j])[0], cells)
+    rng = np.random.RandomState(0)
+    R, C, RC = env.rows, env.cols, env.rows * env.cols
+    boards = (rng.rand(16, 2, R, C) < rng.rand(16, 1, 1, 1) * 0.5
+              ).astype(np.int8)
+    boards[:, 1] *= 1 - boards[:, 0]
+    if game == "connect4":                   # stones rest on the bottom
+        boards = np.sort(boards.sum(1, keepdims=True), axis=2) * np.stack(
+            [np.ones((R, C)), np.zeros((R, C))])[None].astype(np.int8)
+    boards[0] = 0
+    occ = (boards[:, 0] + boards[:, 1]).reshape(16, RC).T.astype(np.float32)
+    aux = want["aux"]
+    if game == "connect4":
+        kernel = (aux @ occ < R).T
+    elif game.startswith("gomoku"):
+        centre = np.arange(RC)[:, None] == (R // 2) * C + C // 2
+        kernel = np.where(occ.max(0, keepdims=True) > 0,
+                          (aux @ occ > 0) & (occ == 0), centre).T
+    else:
+        kernel = (occ == 0).T
+    np.testing.assert_array_equal(
+        tenv.valid_mask_board(torch.as_tensor(boards), None).numpy(), kernel)
 
 
 def test_chunk_reference_real_weights_close_to_jax():

@@ -8,8 +8,8 @@
 * Flags of parts not yet ported exit non-zero naming their ROADMAP module.
 * Scripted ``play`` against vanilla search ends in a result;
   ``parse_input`` reads cells and columns; ``agent_move`` plays a legal
-  move for a tictactoe ResNet and a connect4 dense tower (the whole-move
-  search at B=1).
+  move for a tictactoe ResNet and connect4 and tictactoe dense towers (the
+  whole-move search at B=1).
 """
 
 import json
@@ -117,10 +117,11 @@ def test_play_against_vanilla_scripted():
 
 
 @pytest.mark.parametrize("game,family", [("tictactoe", "resnet"),
-                                         ("connect4", "dense")])
+                                         ("connect4", "dense"),
+                                         ("tictactoe", "dense")])
 def test_agent_move_is_legal(game, family):
     env = make_env(game)
-    model = build_model(ModelConfig(family=family, channels=8, width=32,
+    model = build_model(ModelConfig(family=family, channels=8, width=64,
                                     blocks=1), env)
     params = init_params(model, torch.Generator().manual_seed(0))
     state = env.init(1)

@@ -375,3 +375,103 @@ def test_resnet_tower_kernel_raises_for_unsupported_channels(dev, channels):
     with pytest.raises(ValueError, match="channels"):
         rt.resnet_tower(obs, packed)
     assert rt.K_TOWER.launches == n0
+
+
+@pytest.mark.parametrize("B", [1, 17, 129, 256])
+@pytest.mark.parametrize("game,width", [
+    ("gomoku9", 512),      # gomoku9-dense: A=81, Kp=448
+    ("gomoku9", 384),      # 6 CTAs per cluster: no tile divides
+    ("tictactoe", 512), ("tictactoe", 64)])
+def test_dense_forward_kernel_close_to_plain_off_connect4(dev, game, width,
+                                                          B):
+    """The forward at tictactoe's 9 and gomoku9's 81 actions (three
+    softmax actions per lane), the same tolerance as connect4's."""
+    env = make_env(game)
+    model = build_model(ModelConfig(family="dense", width=width, blocks=2),
+                        env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    packed = fused.pack_dense_params(model, params, dev)
+    boards, players = _positions(env, B, 1, dev)
+    obs = env.observation_from_board(boards, players).reshape(B, -1)
+    pk, vk = fused.dense_forward(obs, packed)
+    pp, vp = fused.dense_forward_reference(obs, packed)
+    err = torch.cat([(pk - pp).abs().reshape(-1), (vk - vp).abs()])
+    assert bool(torch.isfinite(err).all())
+    assert float(err.max()) <= 1e-2
+    assert float((err <= 1e-3).float().mean()) >= 0.99
+    assert torch.allclose(pk.sum(-1), torch.ones(B, device=dev), atol=1e-5)
+
+
+@pytest.mark.parametrize("game", ["tictactoe", "gomoku", "gomoku9"])
+def test_chunk_kernels_bitwise_vs_plain_chunk_off_connect4(dev, game):
+    """The chunk's search kernels under each game's rules, from random
+    positions (finished games replaced by empty boards: the centre rule),
+    with Dirichlet noise and temperature sampling."""
+    env = make_env(game)
+    cfg = MCTSConfig(num_simulations=32, dirichlet_alpha=0.3,
+                     temperature_moves=8)
+    B, M = 64, 4
+    boards, players, mcs, dones = _sim_positions(env, B, 11, dev)
+    boards = torch.where(dones[:, None, None, None], 0, boards)
+    players = torch.where(dones, 0, players)
+    mcs = torch.where(dones, 0, mcs)
+    g = torch.Generator(device=dev).manual_seed(12)
+    kw = dict(noise=fused.dirichlet_noise(M, env.action_dim, B, 0.3, g, dev),
+              unif=torch.rand((M, B), generator=g, device=dev),
+              evaluator=exact_stub_evaluator(env))
+    n0 = fused.K_DESCEND.launches
+    got = fused.run_selfplay_chunk(env, None, None, boards, players, mcs, cfg,
+                                   M, device=dev, **kw)
+    assert fused.K_DESCEND.launches == n0 + M * 31
+    want = fused.selfplay_chunk_reference(env, None, None, boards, players,
+                                          mcs, cfg, M, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("game", ["tictactoe", "gomoku9"])
+def test_move_search_kernels_bitwise_vs_plain_off_connect4(dev, game):
+    """The move search with live, won and drawn roots of each game."""
+    env = make_env(game)
+    cfg = MCTSConfig(num_simulations=40, dirichlet_alpha=0.3)
+    B = 96
+    board, player, mc, done = _sim_positions(env, B, 6, dev)
+    board[-1] = drawn_board(env).to(dev)
+    player[-1], mc[-1], done[-1] = 0, env.max_moves, True
+    args = (board, player, mc, done)
+    g = torch.Generator(device=dev).manual_seed(7)
+    noise = fused.dirichlet_noise(1, env.action_dim, B, 0.3, g, dev)[0].T
+    stub = exact_stub_evaluator(env)
+    kw = dict(noise=noise, evaluator=stub)
+    root = lambda obs: stub(obs.reshape(obs.shape[0], -1))  # noqa: E731
+    got = fused.run_mcts_fused(env, None, None, root, *args, cfg, device=dev,
+                               **kw)
+    want = fused.move_search_reference(env, None, None, root, *args, cfg,
+                                       **kw)
+    for name in ("visit_counts", "policy", "root_q"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    sums = got.visit_counts.sum(-1)
+    assert (sums[~done] == 39).all() and (sums[done] == 0).all()
+
+
+def test_supports_chunk_same_on_card(dev):
+    """The engine gate reads the env, the model and the config, not the
+    device: the same answer with the model's weights on the card."""
+    for game, mcfg, cfg in (
+            ("connect4", ModelConfig(family="dense", width=512, blocks=2),
+             MCTSConfig()),
+            ("gomoku9", ModelConfig(family="dense", width=512, blocks=2),
+             MCTSConfig(num_simulations=400)),
+            ("connect4", ModelConfig(family="dense", width=64, blocks=1),
+             MCTSConfig(num_simulations=510)),
+            ("gomoku15", ModelConfig(family="dense", width=512, blocks=1),
+             MCTSConfig()),
+            ("connect4", ModelConfig(family="dense", width=32, blocks=1),
+             MCTSConfig())):
+        env = make_env(game)
+        model = build_model(mcfg, env)
+        cpu = fused.supports_chunk(env, model, cfg)
+        assert fused.supports_chunk(env, model.to(dev), cfg) == cpu
+        assert cpu == (game in ("connect4", "gomoku9") and mcfg.width >= 64
+                       and cfg.num_simulations < 510)

@@ -197,7 +197,7 @@ def test_dense_smem_counts_the_heads_slots_of_every_rank():
 @pytest.mark.parametrize("D,kp,DV,A", [
     (96, 272, 24, 7),        # not a multiple of 64
     (1024, 272, 256, 7),     # a cluster of 16
-    (512, 272, 128, 81),     # gomoku9-dense's 81 actions
+    (512, 1600, 128, 225),   # gomoku15: 225 actions, a 1600-wide stem
     (512, 264, 128, 7),      # input width not padded to 16
     (128, 272, 20, 7)])      # value_fc slices not a multiple of 8
 def test_dense_plan_refuses_widths_the_kernel_does_not_take(D, kp, DV, A):

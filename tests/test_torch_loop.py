@@ -23,7 +23,7 @@ def _cfg(**train):
         env="connect4",
         mcts=tcfg.MCTSConfig(num_simulations=6, dirichlet_alpha=0.3,
                              temperature_moves=4),
-        model=tcfg.ModelConfig(family="dense", width=16, blocks=1),
+        model=tcfg.ModelConfig(family="dense", width=64, blocks=1),
         replay=tcfg.ReplayConfig(capacity=42 * 32),
         train=tcfg.TrainConfig(**t))
 

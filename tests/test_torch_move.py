@@ -200,12 +200,15 @@ def test_move_search_real_weights_close_to_jax():
                                atol=0.05)
 
 
-def test_run_mcts_raises_for_unported_engines():
-    """The dense tower's fused searches on a game other than connect4 are
-    the engines not ported (module 11): a dense tictactoe search raises.
-    Leaf batching (``leaf_batch > 1``) runs for any network evaluator, the
-    dense tower's included, on the portable engine; vanilla search ignores
-    it, as the JAX package does."""
+def test_run_mcts_dense_tictactoe_finds_immediate_win():
+    """JAX's ``test_fused_finds_immediate_win``
+    (``tests/test_pallas_fused.py``): a dense tictactoe tower (width 64, 1
+    block, JAX's weights from key 0) searching X X . / O O . / . . . with
+    150 simulations through ``run_mcts`` (the move search of
+    ``search/fused.py``) puts most visits on the win, cell 2.  Leaf batching
+    (``leaf_batch > 1``) runs for any network evaluator, the dense tower's
+    included, on the portable engine; vanilla search ignores it, as the JAX
+    package does."""
     from alphazero_tpu_torch.models import init_params as tinit
     z = torch.zeros(2, dtype=torch.int32)
 
@@ -219,10 +222,26 @@ def test_run_mcts_raises_for_unported_engines():
         return make_teval_fn(model, tinit(model,
                                           torch.Generator().manual_seed(0)))
 
+    env = make_env("tictactoe")
+    model = build_model(ModelConfig(family="dense", width=64, blocks=1), env)
+    params = init_params(model, env, jax.random.PRNGKey(0))
     ttt = make_tenv("tictactoe")
-    with pytest.raises(NotImplementedError, match="module 11"):
-        run_mcts(ttt, dense(ttt), *roots(ttt),
-                 tcfg.MCTSConfig(num_simulations=4), device="cpu")
+    tmodel = build_tmodel(tcfg.ModelConfig(family="dense", width=64,
+                                           blocks=1), ttt)
+    eval_fn = make_teval_fn(tmodel, params_from_flax(
+        jax.tree.map(np.asarray, params)))
+    oracle = make_oracle("tictactoe")
+    board = oracle.new_board()
+    for player, cell in ((0, 0), (1, 3), (0, 1), (1, 4)):
+        oracle.place(board, player, cell)
+    one = torch.ones(1, dtype=torch.int32)
+    res = run_mcts(ttt, eval_fn,
+                   torch.as_tensor(board[None], dtype=torch.int8), 0 * one,
+                   4 * one, torch.zeros(1, dtype=torch.bool),
+                   tcfg.MCTSConfig(num_simulations=150, use_dirichlet=False),
+                   device="cpu")
+    assert int(res.visit_counts[0].argmax()) == 2
+    assert int(res.visit_counts.sum()) == 149
     tenv = make_tenv("connect4")
     args = roots(tenv)
     cfg = tcfg.MCTSConfig(num_simulations=4, leaf_batch=2)

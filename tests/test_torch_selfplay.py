@@ -79,7 +79,7 @@ def test_trainer_collect_tiny_on_cpu():
         env="connect4",
         mcts=tcfg.MCTSConfig(num_simulations=8, dirichlet_alpha=0.3,
                              temperature_moves=4),
-        model=tcfg.ModelConfig(family="dense", width=32, blocks=1),
+        model=tcfg.ModelConfig(family="dense", width=64, blocks=1),
         replay=tcfg.ReplayConfig(capacity=42 * 32),
         train=tcfg.TrainConfig(selfplay_batch=4, selfplay_chunk_steps=16,
                                seed=3))
