@@ -1,5 +1,4 @@
-// Search kernels of the whole-chunk self-play and of the move search (one
-// thread per game).
+// Search kernels of the whole-chunk self-play and of the move search.
 //
 // Replaces: alphazero_tpu/search/pallas_fused.py:_chunk_kernel (the Pallas
 // kernel that plays M whole self-play moves per launch) and _move_kernel
@@ -24,34 +23,52 @@
 //
 // Bound on this card: none of them moves more than a few hundred KB or does
 // more than a few thousand operations per game (bounds well under 1 µs at
-// B=512), so what bounds them is latency: one thread per game, B=512
-// threads on a handful of SMs, and in the walk a chain of dependent L2
-// reads per step (the node's A edges, then its children's stats) that a
-// warp repeats until its deepest game stops.  The design keeps each game's
-// work in one thread so the walk needs no synchronisation and no one-hot
-// gathers (the TPU kernel's games-in-lanes layout); the tree stays in
-// device memory, ~6.6 MB at B=512, S=200, which lives in L2.  More games or
-// lanes per walk step is the way to a shorter chain, later.
+// B=512), so what bounds them is latency.  In the walk it is a chain of
+// dependent reads per step: the node's A edges (child, prior), then the
+// children's visit and value; the tree (≈ 67 MB at gomoku9, B=256, S=400)
+// does not all stay in the 50 MB L2.
+//
+// Layout of the two per-simulation kernels (az_descend_leaf, az_apply): a
+// group of G lanes serves one game, G a power of two from the action count
+// (group_size: 8 up to A=8, 16 up to 16, else 32, the most a warp shuffle
+// spans), so a warp holds 32/G games and a CTA of kThreads lanes
+// kThreads/G.  A walk step reads the node's A edges spread over the lanes
+// (coalesced, at most MAX_A/32 a lane), each lane keeps its first maximum
+// of the UCB in ascending action order, and a butterfly of shuffles over
+// the group reduces (u, action) to the larger u, on a tie the lower action:
+// the serial loop's first maximum.  The winner's lane broadcasts its child,
+// visit count and expanded bit.  Games of one warp stop at different
+// depths, so the loop runs while any game of the warp walks (__any_sync)
+// and a stopped or idle group (past B on the last CTA) runs on and writes
+// nothing.  The walk's board is two planes per game in shared memory (and
+// the column heights under gravity), played on by lane 0; the leaf finish
+// spreads the path reset (lanes over plies), the win check (lanes over
+// lines, then a ballot over the group), the legal mask (lanes over actions)
+// and the observation (lanes over cells, coalesced) over the group.
+// az_apply writes the new row's edges with lanes over actions and backs up
+// with lanes over plies: the nodes of one path are distinct, so each gets
+// its one addition as in the serial loop.  The other kernels run one thread
+// per game, or per element where their work is elementwise.
 //
 // Games: the move rules (envs/core.py: Env.rules) are a template parameter
 // of the kernels that place a stone or build a legal mask (az_root_init,
 // az_descend_leaf, az_move_tail), so each game's walk is compiled on its
-// own and connect4's keeps its code: gravity (a move drops down its column,
-// a column with room is legal), cells (a move fills its cell, an empty cell
-// is legal: tictactoe), neighbourhood (as cells, but an empty cell is legal
-// only next to a stone, and the centre alone on an empty board: gomoku).
-// Limits: boards of up to 256 cells (the walk's two planes are per-thread
-// arrays), 32 columns under gravity, 128 actions (the cap of the dense
-// forward's softmax, checked here too); no per-thread array is sized by the
-// actions, so A=81 (gomoku9) spills nothing beyond the planes.
+// own: gravity (a move drops down its column, a column with room is legal),
+// cells (a move fills its cell, an empty cell is legal: tictactoe),
+// neighbourhood (as cells, but an empty cell is legal only next to a stone,
+// and the centre alone on an empty board: gomoku).  Limits: boards of up to
+// 256 cells, 32 columns under gravity, 128 actions (the cap of the dense
+// forward's softmax, checked here too).
 //
 // Numerics: this file is built with -fmad=false and writes the float32
 // operations with round-to-nearest intrinsics, in the order of the plain
-// PyTorch versions in search/fused.py, so that results agree bit for bit.
-// The tree layout is described in search/fused.py.
+// PyTorch versions in search/fused.py, so that results agree bit for bit; a
+// shuffle moves a value without changing it.  The tree layout is described
+// in search/fused.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -67,6 +84,8 @@
 #define RULES_CELLS 0
 #define RULES_GRAVITY 1
 #define RULES_NEIGHBOURHOOD 2
+
+constexpr int kThreads = 128;  // threads per CTA
 
 namespace {
 
@@ -175,117 +194,188 @@ __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
   vl[0] = -value[b];
 }
 
-template <int RULES>
-__global__ void descend_leaf_kernel(
+// ---- the per-simulation kernels: a group of G lanes per game
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// lanes per game for A actions (search/fused.py:search_geometry mirrors it)
+inline int group_size(int A) { return A <= 8 ? 8 : (A <= 16 ? 16 : 32); }
+
+// this lane's group's lanes in its warp
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return (kFull >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+template <int RULES, int G>
+__global__ void __launch_bounds__(kThreads) descend_leaf_kernel(
     const float* visit, const float* val, const int32_t* child,
     const float* prior, const int8_t* board, const int32_t* player,
     const int32_t* mc, const int32_t* lines, int32_t* path, int32_t* apath,
     int32_t* pend, uint8_t* valid, float* obs, int B, int N, int A, int R,
     int C, int F, int L, int K, int dcap, int max_moves, int slot, int az,
     float c_puct) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int kGames = kThreads / G;
+  constexpr int kEdges = G == 32 ? MAX_A / 32 : 1;  // edges a lane reads
+  __shared__ uint8_t s_planes[kGames][2 * MAX_CELLS];
+  __shared__ int s_h[RULES == RULES_GRAVITY ? kGames : 1][MAX_COLS];
+  const int gi = threadIdx.x / G, lane = threadIdx.x % G;
+  const int b = blockIdx.x * kGames + gi;
+  const bool active = b < B;
+  const int bc = active ? b : B - 1;  // an idle group reads in range
+  const unsigned gmask = group_mask<G>();
   const int RC = R * C;
-  const float* vs = visit + (size_t)b * N;
-  const float* vl = val + (size_t)b * N;
+  uint8_t* pl = s_planes[gi];
+  int* h = s_h[RULES == RULES_GRAVITY ? gi : 0];
+  const int8_t* bd = board + (size_t)bc * 2 * RC;
+  for (int c = lane; c < 2 * RC; c += G) pl[c] = (uint8_t)bd[c];
+  if (RULES == RULES_GRAVITY)
+    for (int c = lane; c < C; c += G) {
+      int s = 0;
+      for (int r = 0; r < R; ++r) s += bd[r * C + c] + bd[RC + r * C + c];
+      h[c] = s;
+    }
+  // ply d of the path is reset, then written by lane d % G
   int32_t* pa = path + (size_t)b * dcap;
   int32_t* ap = apath + (size_t)b * dcap;
-  for (int d = 0; d < dcap; ++d) {
-    pa[d] = N;
-    ap[d] = 0;
-  }
-  uint8_t planes[2][MAX_CELLS];
-  const int8_t* bd = board + (size_t)b * 2 * RC;
-  for (int c = 0; c < RC; ++c) {
-    planes[0][c] = (uint8_t)bd[c];
-    planes[1][c] = (uint8_t)bd[RC + c];
-  }
-  int h[RULES == RULES_GRAVITY ? MAX_COLS : 1];
-  if (RULES == RULES_GRAVITY) column_heights(bd, R, C, h);
-  const int rootp = player[b];
+  if (active)
+    for (int d = lane; d < dcap; d += G) {
+      pa[d] = N;
+      ap[d] = 0;
+    }
+  __syncwarp();
+  const float* vs = visit + (size_t)bc * N;
+  const float* vl = val + (size_t)bc * N;
+  const int rootp = player[bc];
 
   int node = 0, depth = 0, parent = -1, action = 0, chsel = 0;
   float pv = floorf(vs[0]);
-  bool stop = vs[0] == pv;  // root not expanded
-  for (int d = 0; d < dcap && !stop; ++d) {
-    const int32_t* ch = child + ((size_t)b * N + node) * A;
-    const float* pr = prior + ((size_t)b * N + node) * A;
-    const float sq = __fsqrt_rn(pv);
-    float best = -INFINITY, v_sel = 0.0f, e_sel = 0.0f;
-    int act = 0, c_sel = 0;
-    for (int a = 0; a < A; ++a) {
-      const int c = ch[a];
-      float cv = 0.0f, cl = 0.0f;
-      if (c >= 0) {
-        cv = vs[c];
-        cl = vl[c];
+  bool stop = !active || vs[0] == pv;  // root not expanded
+  for (int d = 0; d < dcap && __any_sync(kFull, !stop); ++d) {
+    // this lane's edges: its first maximum in ascending action order
+    float best = -INFINITY, v_best = 0.0f, e_best = 0.0f;
+    int act = INT_MAX, c_best = 0;
+    if (!stop) {
+      const int32_t* ch = child + ((size_t)bc * N + node) * A;
+      const float* pr = prior + ((size_t)bc * N + node) * A;
+      const float sq = __fsqrt_rn(pv);
+      int cs[kEdges];
+      float ps[kEdges], cvs[kEdges], cls[kEdges];
+#pragma unroll
+      for (int k = 0; k < kEdges; ++k) {  // the edges, then their children
+        const int a = lane + k * G;
+        cs[k] = a < A ? ch[a] : ILLEGAL;
+        ps[k] = a < A ? pr[a] : 0.0f;
       }
-      const float cf = floorf(cv);
-      const float ce = __fmul_rn(__fsub_rn(cv, cf), 2.0f);
-      const float q = cf > 0.0f ? __fdiv_rn(cl, fmaxf(cf, 1.0f)) : 0.0f;
-      float ex = __fmul_rn(pr[a], __fdiv_rn(sq, __fadd_rn(cf, 1.0f)));
-      if (az) ex = __fmul_rn(c_puct, ex);
-      const float u = c == ILLEGAL ? NEG_UCB : __fadd_rn(q, ex);
-      if (u > best) {  // first maximum in ascending action order
-        best = u;
-        act = a;
-        c_sel = c;
-        v_sel = cf;
-        e_sel = ce;
+#pragma unroll
+      for (int k = 0; k < kEdges; ++k) {
+        cvs[k] = cs[k] >= 0 ? vs[cs[k]] : 0.0f;
+        cls[k] = cs[k] >= 0 ? vl[cs[k]] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kEdges; ++k) {
+        const int a = lane + k * G;
+        const float cf = floorf(cvs[k]);
+        const float ce = __fmul_rn(__fsub_rn(cvs[k], cf), 2.0f);
+        const float q =
+            cf > 0.0f ? __fdiv_rn(cls[k], fmaxf(cf, 1.0f)) : 0.0f;
+        float ex = __fmul_rn(ps[k], __fdiv_rn(sq, __fadd_rn(cf, 1.0f)));
+        if (az) ex = __fmul_rn(c_puct, ex);
+        const float u = cs[k] == ILLEGAL ? NEG_UCB : __fadd_rn(q, ex);
+        if (a < A && u > best) {
+          best = u;
+          act = a;
+          c_best = cs[k];
+          v_best = cf;
+          e_best = ce;
+        }
       }
     }
-    const bool now_stop = c_sel < 0 || e_sel == 0.0f;
-    pa[d] = node;
-    ap[d] = act;
-    parent = node;
-    action = act;
-    chsel = c_sel;
-    depth = d + 1;
-    if (!now_stop) node = c_sel;
-    pv = v_sel;
-    // play the selected move on the walk's board
-    const int mover = (rootp + d) & 1;
-    if (RULES == RULES_GRAVITY) {
-      if (h[act] < R) planes[mover][(R - 1 - h[act]) * C + act] = 1;
-      h[act] += 1;
-    } else {
-      planes[mover][act] = 1;
+    // the group's maximum of (u, -action): the first maximum of the row
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float ou = __shfl_xor_sync(kFull, best, off, G);
+      const int oa = __shfl_xor_sync(kFull, act, off, G);
+      if (ou > best || (ou == best && oa < act)) {
+        best = ou;
+        act = oa;
+      }
     }
-    stop = now_stop;
+    const int src = act & (G - 1);  // the lane that read the winning edge
+    const int c_sel = __shfl_sync(kFull, c_best, src, G);
+    const float v_sel = __shfl_sync(kFull, v_best, src, G);
+    const float e_sel = __shfl_sync(kFull, e_best, src, G);
+    if (!stop) {
+      const bool now_stop = c_sel < 0 || e_sel == 0.0f;
+      if (lane == d % G) {
+        pa[d] = node;
+        ap[d] = act;
+      }
+      parent = node;
+      action = act;
+      chsel = c_sel;
+      depth = d + 1;
+      if (!now_stop) node = c_sel;
+      pv = v_sel;
+      // play the selected move on the walk's board
+      if (lane == 0) {
+        const int mover = (rootp + d) & 1;
+        if (RULES == RULES_GRAVITY) {
+          if (h[act] < R) pl[mover * RC + (R - 1 - h[act]) * C + act] = 1;
+          h[act] += 1;
+        } else {
+          pl[mover * RC + act] = 1;
+        }
+      }
+      stop = now_stop;
+    }
   }
+  __syncwarp();
   const bool root_case = parent < 0;
   const bool alloc = parent >= 0 && chsel < 0;
   const int leaf_player = (rootp + depth) & 1;
-  const bool won = any_line(planes[1 - leaf_player], lines, L, K);
+  // the win check: lanes over lines, a ballot over the group
+  const uint8_t* last = pl + (1 - leaf_player) * RC;
+  bool line = false;
+  for (int l = lane; l < L; l += G) {
+    bool all = true;
+    for (int k = 0; k < K; ++k) all = all && last[lines[l * K + k]];
+    line = line || all;
+  }
+  const bool won = (__ballot_sync(kFull, line) & gmask) != 0;
+  bool any = false;
+  if (RULES == RULES_NEIGHBOURHOOD) {
+    bool stone = false;
+    for (int c = lane; c < RC; c += G) stone = stone || pl[c] || pl[RC + c];
+    any = (__ballot_sync(kFull, stone) & gmask) != 0;
+  }
+  if (!active) return;
   const bool terminal = root_case || won || mc[b] + depth >= max_moves;
   const int leaf = root_case ? 0 : (alloc ? slot : chsel);
-  int32_t* pd = pend + (size_t)b * PEND_COLS;
-  pd[0] = depth;
-  pd[1] = parent;
-  pd[2] = action;
-  pd[3] = alloc;
-  pd[4] = leaf;
-  pd[5] = terminal;
-  pd[6] = won;
-  const bool any =
-      RULES == RULES_NEIGHBOURHOOD && any_stone(planes[0], planes[1], RC);
-  for (int a = 0; a < A; ++a)
-    valid[(size_t)b * A + a] =
-        legal<RULES>(planes[0], planes[1], h, any, a, R, C);
+  if (lane < PEND_COLS)
+    pend[(size_t)b * PEND_COLS + lane] =
+        lane == 0 ? depth : lane == 1 ? parent : lane == 2 ? action
+        : lane == 3 ? (int)alloc : lane == 4 ? leaf
+        : lane == 5 ? (int)terminal : (int)won;
+  for (int a = lane; a < A; a += G)
+    valid[(size_t)b * A + a] = legal<RULES>(pl, pl + RC, h, any, a, R, C);
+  const uint8_t* mine = pl + leaf_player * RC;
   float* o = obs + (size_t)b * F * RC;
-  for (int c = 0; c < RC; ++c) {
-    o[c] = (float)planes[leaf_player][c];
-    o[RC + c] = (float)planes[1 - leaf_player][c];
+  for (int c = lane; c < RC; c += G) {
+    o[c] = (float)mine[c];
+    o[RC + c] = (float)last[c];
     if (F == 3) o[2 * RC + c] = (float)leaf_player;
   }
 }
 
-__global__ void apply_kernel(float* visit, float* val, int32_t* child,
-                             float* prior, const int32_t* path,
-                             const int32_t* pend, const uint8_t* valid,
-                             const float* probs, const float* value, int B,
-                             int N, int A, int dcap, int slot) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+template <int G>
+__global__ void __launch_bounds__(kThreads) apply_kernel(
+    float* visit, float* val, int32_t* child, float* prior,
+    const int32_t* path, const int32_t* pend, const uint8_t* valid,
+    const float* probs, const float* value, int B, int N, int A, int dcap,
+    int slot) {
+  const int lane = threadIdx.x % G;
+  const int b = blockIdx.x * (kThreads / G) + threadIdx.x / G;
   if (b >= B) return;
   const int32_t* pd = pend + (size_t)b * PEND_COLS;
   const int depth = pd[0], parent = pd[1], action = pd[2];
@@ -294,18 +384,19 @@ __global__ void apply_kernel(float* visit, float* val, int32_t* child,
   const bool do_expand = alloc && !terminal;
   int32_t* ch = child + (size_t)b * N * A;
   float* pr = prior + (size_t)b * N * A;
-  for (int a = 0; a < A; ++a) {
+  for (int a = lane; a < A; a += G) {
     const bool e = do_expand && valid[(size_t)b * A + a];
     ch[(size_t)slot * A + a] = e ? NO_CHILD : ILLEGAL;
     pr[(size_t)slot * A + a] = e ? qprior(probs[(size_t)b * A + a]) : 0.0f;
   }
-  if (alloc) ch[(size_t)parent * A + action] = slot;
+  if (alloc && lane == 0) ch[(size_t)parent * A + action] = slot;
   const float lv = terminal ? (won ? 1.0f : 0.0f) : -value[b];
   float* vs = visit + (size_t)b * N;
   float* vl = val + (size_t)b * N;
   const int32_t* pa = path + (size_t)b * dcap;
-  for (int d = 0; d <= depth; ++d) {
-    const int nd = d == depth ? leaf : pa[min(d, dcap - 1)];
+  // the plies of one path hold distinct nodes: one addition each
+  for (int d = lane; d <= depth; d += G) {
+    const int nd = d == depth ? leaf : pa[d];
     vs[nd] = __fadd_rn(vs[nd], (d == depth && do_expand) ? 1.5f : 1.0f);
     vl[nd] = __fadd_rn(vl[nd], ((depth - d) % 2 == 0) ? lv : -lv);
   }
@@ -430,8 +521,6 @@ __global__ void root_counts_kernel(const float* visit, const float* val,
   root_q[b] = __fdiv_rn(val[(size_t)b * N], fmaxf(floorf(vs[0]), 1.0f));
 }
 
-constexpr int kThreads = 128;
-
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // The games these kernels take (search/fused.py:supports_chunk mirrors it).
@@ -453,6 +542,24 @@ int with_rules(int A, int R, int C, int rules, Launch launch) {
   else
     launch(std::integral_constant<int, RULES_CELLS>());
   return (int)cudaGetLastError();
+}
+
+// launch(std::integral_constant<int, G>) for the group size of A actions
+template <class Launch>
+void with_group(int A, Launch launch) {
+  const int g = group_size(A);
+  if (g == 8)
+    launch(std::integral_constant<int, 8>());
+  else if (g == 16)
+    launch(std::integral_constant<int, 16>());
+  else
+    launch(std::integral_constant<int, 32>());
+}
+
+// CTAs of the group kernels for B games
+inline int group_blocks(int B, int A) {
+  const int games = kThreads / group_size(A);
+  return (B + games - 1) / games;
 }
 
 }  // namespace
@@ -484,6 +591,17 @@ int az_root_init(void* visit, void* val, void* child, void* prior,
   });
 }
 
+// Launch geometry of az_descend_leaf and az_apply for B games of A
+// actions: out = {lanes per game, games per CTA, CTAs, threads per CTA}.
+int az_search_geometry(int B, int A, int* out) {
+  if (A < 1 || A > MAX_A || B < 1) return (int)cudaErrorInvalidValue;
+  out[0] = group_size(A);
+  out[1] = kThreads / out[0];
+  out[2] = group_blocks(B, A);
+  out[3] = kThreads;
+  return 0;
+}
+
 int az_descend_leaf(const void* visit, const void* val, const void* child,
                     const void* prior, const void* board, const void* player,
                     const void* mc, const void* lines, void* path, void* apath,
@@ -491,13 +609,16 @@ int az_descend_leaf(const void* visit, const void* val, const void* child,
                     int R, int C, int F, int L, int K, int dcap, int max_moves,
                     int rules, int slot, int az, float c_puct, void* stream) {
   return with_rules(A, R, C, rules, [&](auto rl) {
-    descend_leaf_kernel<decltype(rl)::value>
-        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)visit, (const float*)val, (const int32_t*)child,
-            (const float*)prior, (const int8_t*)board, (const int32_t*)player,
-            (const int32_t*)mc, (const int32_t*)lines, (int32_t*)path,
-            (int32_t*)apath, (int32_t*)pend, (uint8_t*)valid, (float*)obs, B,
-            N, A, R, C, F, L, K, dcap, max_moves, slot, az, c_puct);
+    with_group(A, [&](auto gl) {
+      descend_leaf_kernel<decltype(rl)::value, decltype(gl)::value>
+          <<<group_blocks(B, A), kThreads, 0, (cudaStream_t)stream>>>(
+              (const float*)visit, (const float*)val, (const int32_t*)child,
+              (const float*)prior, (const int8_t*)board,
+              (const int32_t*)player, (const int32_t*)mc,
+              (const int32_t*)lines, (int32_t*)path, (int32_t*)apath,
+              (int32_t*)pend, (uint8_t*)valid, (float*)obs, B, N, A, R, C, F,
+              L, K, dcap, max_moves, slot, az, c_puct);
+    });
   });
 }
 
@@ -505,10 +626,14 @@ int az_apply(void* visit, void* val, void* child, void* prior,
              const void* path, const void* pend, const void* valid,
              const void* probs, const void* value, int B, int N, int A,
              int dcap, int slot, void* stream) {
-  apply_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
-      (const int32_t*)path, (const int32_t*)pend, (const uint8_t*)valid,
-      (const float*)probs, (const float*)value, B, N, A, dcap, slot);
+  if (A < 1 || A > MAX_A) return (int)cudaErrorInvalidValue;
+  with_group(A, [&](auto gl) {
+    apply_kernel<decltype(gl)::value>
+        <<<group_blocks(B, A), kThreads, 0, (cudaStream_t)stream>>>(
+            (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
+            (const int32_t*)path, (const int32_t*)pend, (const uint8_t*)valid,
+            (const float*)probs, (const float*)value, B, N, A, dcap, slot);
+  });
   return (int)cudaGetLastError();
 }
 

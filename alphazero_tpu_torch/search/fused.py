@@ -29,7 +29,14 @@ Each stage is a hand-written CUDA kernel (``csrc/search.cu``,
 ``csrc/dense_forward.cu``) with its plain PyTorch version beside it in this
 module.  A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  :func:`run_selfplay_chunk`
-and :func:`run_mcts_fused` sequence the stages from the host.
+and :func:`run_mcts_fused` sequence the stages from the host.  The two
+kernels of every simulation, the descent and the apply, give each game a
+group of G lanes (8, 16 or 32 from the action count): the walk reads a
+node's A edges across the group and reduces them to the first maximum, the
+leaf finish and the expansion spread their cells, lines, actions and plies
+over it (:func:`search_geometry`, the ``search.cu`` header).  The other
+search kernels run a thread per game, or per element where their work is
+elementwise.
 
 The tree lives in device memory with games in rows: ``visit``/``val``
 ``(B, N)`` float32 with N = S+1, edges ``child (B, N, A)`` int32 (node id,
@@ -78,6 +85,8 @@ SEARCH_MAX_COLS = 32
 # columns of the pending-leaf record written by the descent
 P_DEPTH, P_PARENT, P_ACTION, P_ALLOC, P_LEAF, P_TERMINAL, P_WON = range(7)
 PEND_COLS = 7
+# threads per CTA of the search kernels (csrc/search.cu: kThreads)
+SEARCH_THREADS = 128
 
 
 def game_tables(env) -> dict:
@@ -671,6 +680,47 @@ def root_counts_reference(tree: Tree):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def search_group(A: int) -> int:
+    """Lanes per game of ``az_descend_leaf`` and ``az_apply`` for A actions
+    (``csrc/search.cu:group_size``): the smallest of 8, 16 and 32 that holds
+    A, and 32 above that (a warp; each lane then reads up to 4 edges)."""
+    if not 1 <= A <= MAX_ACTIONS:
+        raise ValueError(f"the search kernels take 1 to {MAX_ACTIONS} "
+                         f"actions, not {A}")
+    return 8 if A <= 8 else 16 if A <= 16 else 32
+
+
+def search_geometry(B: int, A: int) -> dict:
+    """Launch geometry of ``az_descend_leaf`` and ``az_apply`` at B games
+    of A actions: a group of G lanes per game, ``SEARCH_THREADS // G``
+    games per CTA, as many CTAs as the games need."""
+    if B < 1:
+        raise ValueError(f"batch {B} < 1")
+    G = search_group(A)
+    games = SEARCH_THREADS // G
+    return {"lanes_per_game": G, "games_per_cta": games,
+            "ctas": -(-B // games), "threads_per_cta": SEARCH_THREADS}
+
+
+def search_kernel_geometry(B: int, A: int) -> dict:
+    """:func:`search_geometry` as the kernels' library reports it
+    (``az_search_geometry``; needs the CUDA toolkit).  Raises if the two
+    disagree."""
+    lib = load_lib("search.cu")
+    lib.az_search_geometry.argtypes = [_I, _I, _P]
+    out = (ctypes.c_int * 4)()
+    rc = lib.az_search_geometry(B, A, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"az_search_geometry: CUDA error {rc} "
+                           f"({lib.az_error_string(rc).decode()})")
+    got = dict(zip(("lanes_per_game", "games_per_cta", "ctas",
+                    "threads_per_cta"), out))
+    if got != search_geometry(B, A):
+        raise RuntimeError(f"search geometry: the kernels report {got}, "
+                           f"search_geometry gives {search_geometry(B, A)}")
+    return got
+
 
 K_ROOT_OBS = CudaKernel("search.cu", "az_root_obs", [
     _P, _P, _P, _P, _I, _I, _I, _P])

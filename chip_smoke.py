@@ -21,7 +21,9 @@ Phases (any failure exits non-zero before the final line):
      after, checks on the games it produced, env-steps/s over >= 3 chunks;
      and the device time of every kernel over one profiled chunk;
   5. each search kernel against its plain version on a snapshot of a
-     main-path move, with times;
+     main-path move, with times, and the launch geometry of the descent and
+     the apply (lanes per game, games per CTA, CTAs) at self-play's batch
+     and the gate's, as the kernels report it;
   6. the move search (the gate's search, kernel 2) on the card against its
      plain version, bit for bit, under the exact stub evaluator at B=128,
      S=200 with Dirichlet noise fed to both and live, won and drawn games
@@ -41,8 +43,11 @@ Phases (any failure exits non-zero before the final line):
      Dirichlet noise fed to both and live, won and drawn roots mixed, and
      tictactoe at B=256, S=50; then az_sim_step
      and az_sim_flush each against its plain version on a snapshot of a
-     real-weights connect4-resnet search, with times and bounds; and one
-     vanilla (rollout) search on the card;
+     real-weights connect4-resnet search, with times and bounds; az_sim_step
+     at gomoku9's A=81 (B=256, S=400, an exact-stub tree): one step bitwise
+     against its plain version, its device time (``device_ms``, each call
+     on its own copy of the snapshot) and bound; and one vanilla (rollout)
+     search on the card;
   9. the second model family's outer iteration,
      ``Trainer(preset("connect4-resnet")).iterate(vanilla_eval=False)`` at
      full width: launch counts measured per phase (the dense kernels must
@@ -78,11 +83,13 @@ Phases (any failure exits non-zero before the final line):
      env-steps/s of its chunks, and checks on every move its chunks played
      (legal, the first in the centre, a winner exactly where a line was
      completed); each search kernel against its plain version on that
-     path's snapshots (B=256 and the gate's B=128) with times and bounds;
-     one chunk and one gate move profiled; the phase's seconds;
+     path's snapshots (B=256 and the gate's B=128) with times, bounds and
+     the descent's and apply's launch geometry; one chunk and one gate move
+     profiled; the phase's seconds;
 then the main-path summaries, one JSON line of all eleven kernels (each
-with the games it was held at, and the gomoku9-dense path's launches,
-times and bounds under ``by_path``), the card line, and the device JSON.
+with the games it was held at, the descent's and apply's geometry, and
+the gomoku9-dense path's launches, times and bounds under ``by_path``), the
+card line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -529,6 +536,15 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
         fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
         p, v = fused.dense_forward(tree.obs, packed)
         fused.apply(tree, slot, p, v)
+    # the launch geometry of the descent and the apply at the chunk's batch
+    # and the gate's, as the kernels' library reports it
+    geometry = {str(Bx): fused.search_kernel_geometry(Bx, A)
+                for Bx in (B, tr.cfg.train.gate_games // 2)}
+    for Bx, g in geometry.items():
+        log(f"  az_descend_leaf / az_apply geometry, {env.name} A={A} "
+            f"B={Bx}: {g['lanes_per_game']} lanes per game, "
+            f"{g['games_per_cta']} games per CTA, {g['ctas']} CTAs of "
+            f"{g['threads_per_cta']} threads")
     # descend at slot S/2
     dstate = {"tree": tree, "board": board, "player": player, "mc": mc}
     ms = compare("az_descend_leaf",
@@ -553,7 +569,7 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
                + 2 * B * dcap * 4 + B * 28 + B * A + B * F * RC * 4)
     b_ms, b_by = bound(d_bytes, f32_ops=steps * A * 8.0)
     summary["az_descend_leaf"] = dict(**ms, bound_ms=b_ms,
-                                      bound_by=b_by)
+                                      bound_by=b_by, geometry=geometry)
     log(f"  descend at slot {half}: {steps} walk steps over {B} games "
         f"(deepest {int(depth.max())}), {n_kids} child reads")
     p, v = fused.dense_forward(tree.obs, packed)
@@ -568,7 +584,7 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
                + B * A * 8 + B * 4)
     b_ms, b_by = bound(a_bytes, f32_ops=2.0 * plies)
     summary["az_apply"] = dict(**ms, bound_ms=b_ms,
-                               bound_by=b_by)
+                               bound_by=b_by, geometry=geometry)
     fused.apply(tree, half, p, v)
     for slot in range(half + 1, S):
         fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
@@ -749,7 +765,6 @@ def sim_phase(gen, dev):
     pc = preset("connect4-resnet")
     env, mcfg = make_env(pc.env), pc.mcts
     B, S, A = pc.train.selfplay_batch, mcfg.num_simulations, env.action_dim
-    RC, F = env.rows * env.cols, env.feature_dim
     model = build_model(pc.model, env).to(dev)
     params = {k: v.to(dev) for k, v in init_params(
         model, torch.Generator().manual_seed(0)).items()}
@@ -784,27 +799,9 @@ def sim_phase(gen, dev):
                      env, mcfg, s["tree"], s["st"], s["p"], s["v"],
                      half - 1, half),
                  state, outs, reps=30, preps=2, fresh=True)
-    prev_plies = int((ss.meta[:, sim.M_DEPTH].long() + 1).sum())
-    sim.sim_step(env, mcfg, tree, ss, p, v, half - 1, half)
-    depth = ss.meta[:, sim.M_DEPTH].long()
-    steps = int(depth.sum())
-    dcap = ss.path.shape[1]
-    nodes = ss.path.long().clamp(max=S)
-    on_path = torch.arange(dcap, device=dev)[None] < depth[:, None]
-    kids = (tree.children[torch.arange(B, device=dev)[:, None], nodes] >= 0
-            ).sum(-1)
-    n_kids = int(kids[on_path].sum())
-    flush_bytes = (B * A * 4 + B * 4 + B * 32 + B * A + prev_plies * 4
-                   + prev_plies * 24 + B * A * 4 + B * 4)
-    step_bytes = (flush_bytes + nbytes(st.board, st.current_player,
-                                       st.move_count)
-                  + steps * A * 8 + n_kids * 12 + 2 * B * dcap * 4 + B * 32
-                  + B * A + B * F * RC * 4)
-    b_ms, b_by = bound(step_bytes, f32_ops=steps * A * 8.0 + 2 * prev_plies)
+    b_ms, b_by, depth = sim_step_bound(sim, env, mcfg, tree, ss, p, v,
+                                       half)
     summary["az_sim_step"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"  sim step at slot {half}: {steps} walk steps over {B} games "
-        f"(deepest {int(depth.max())}), {n_kids} child reads, flush of "
-        f"{prev_plies} plies")
     p, v = forward(ss.obs)
     ms = compare("az_sim_flush",
                  lambda s: sim.flush(env, s["tree"], s["st"], s["p"], s["v"],
@@ -819,6 +816,7 @@ def sim_phase(gen, dev):
                        + plies * 24 + B * A * 4 + B * 4,
                        f32_ops=2.0 * plies)
     summary["az_sim_flush"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    summary["az_sim_step"]["gomoku9"] = sim_step_at_81(gen, dev)
     # the searches above held both kernels against the plain search too
     for name in ("az_sim_step", "az_sim_flush"):
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
@@ -838,6 +836,94 @@ def sim_phase(gen, dev):
     if not ok:
         fail("vanilla search on the card")
     return summary
+
+
+def sim_step_bound(sim, env, mcfg, tree, ss, p, v, slot):
+    """Run ``az_sim_step`` (flush of ``slot - 1``, descent of ``slot``) on
+    ``tree``/``ss`` and return its bound from this step's data (the plies
+    flushed, the walk's steps and child reads) and the walk's depths:
+    ``(bound ms, bound by, depth (B,))``."""
+    B, N, A = tree.prior.shape
+    RC, F = env.rows * env.cols, env.feature_dim
+    prev_plies = int((ss.meta[:, sim.M_DEPTH].long() + 1).sum())
+    sim.sim_step(env, mcfg, tree, ss, p, v, slot - 1, slot)
+    depth = ss.meta[:, sim.M_DEPTH].long()
+    steps = int(depth.sum())
+    dcap = ss.path.shape[1]
+    nodes = ss.path.long().clamp(max=N - 1)
+    on_path = torch.arange(dcap, device=depth.device)[None] < depth[:, None]
+    kids = (tree.children[torch.arange(B, device=depth.device)[:, None],
+                          nodes] >= 0).sum(-1)
+    n_kids = int(kids[on_path].sum())
+    flush_bytes = (B * A * 4 + B * 4 + B * 32 + B * A + prev_plies * 4
+                   + prev_plies * 24 + B * A * 4 + B * 4)
+    step_bytes = (flush_bytes + nbytes(tree.root_board, tree.root_player,
+                                       tree.root_move_count)
+                  + steps * A * 8 + n_kids * 12 + 2 * B * dcap * 4 + B * 32
+                  + B * A + B * F * RC * 4)
+    b_ms, b_by = bound(step_bytes, f32_ops=steps * A * 8.0 + 2 * prev_plies)
+    log(f"  sim step at slot {slot}, {env.name} B={B}: {steps} walk steps "
+        f"(deepest {int(depth.max())}), {n_kids} child reads, flush of "
+        f"{prev_plies} plies; bound {b_ms:.6f} ms ({b_by})")
+    return b_ms, b_by, depth
+
+
+def sim_step_at_81(gen, dev):
+    """az_sim_step at gomoku9's A=81 with the gomoku9 preset's self-play
+    batch and search (B=256, S=400): a tree of S/2 simulations under the
+    exact stub, one step held bitwise against its plain version, then its
+    device time by device_ms with every call on its own copy of the
+    snapshot (a step may not be repeated on its own output), and its bound.
+    Returns the summary."""
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import expand_root
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    from alphazero_tpu_torch.search.tree import init_tree
+    pc = preset("gomoku9")
+    env, mcfg = make_env(pc.env), pc.mcts
+    B, S, A = pc.train.selfplay_batch, mcfg.num_simulations, env.action_dim
+    stub = exact_stub_evaluator(env)
+    ev = lambda o: stub(o.reshape(o.shape[0], -1))  # noqa: E731
+    st = random_positions(env, B, gen, dev)
+    noise = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen,
+                                  dev)[0].T.contiguous()
+    tree = init_tree(env, st.board, st.current_player, st.move_count, S)
+    expand_root(env, mcfg, tree, ev, st.done,
+                torch.ones(B, dtype=torch.bool, device=dev), noise, None)
+    ss = sim.SimState.create(env, B, S, dev)
+    p = torch.zeros((B, A), device=dev)
+    v = torch.zeros((B,), device=dev)
+    half = S // 2
+    for slot in range(1, half):
+        sim.sim_step(env, mcfg, tree, ss, p, v, slot - 1, slot)
+        p, v = ev(ss.obs)
+    tp, sp = tree.clone(), ss.clone()
+    sim.sim_step_reference(env, mcfg, tp, sp, p, v, half - 1, half)
+    reps = 10
+    pool = iter([(tree.clone(), ss.clone()) for _ in range(1 + 4 * reps)])
+
+    def step():
+        t, s_ = next(pool)
+        sim.sim_step(env, mcfg, t, s_, p, v, half - 1, half)
+
+    dms = device_ms([("az_sim_step", step, reps)])["az_sim_step"]
+    b_ms, b_by, _ = sim_step_bound(sim, env, mcfg, tree, ss, p, v, half)
+    bad = [f for f in ("stats", "prior", "children")
+           if not torch.equal(getattr(tree, f), getattr(tp, f))]
+    bad += [f for f in ("path", "apath", "meta", "valid", "obs")
+            if not torch.equal(getattr(ss, f), getattr(sp, f))]
+    us = "not measured" if dms is None else f"{dms * 1e3:.2f} us"
+    log(f"[sim step at A=81] gomoku9 B={B} S={S}, slot {half} of an exact-"
+        f"stub search: {'bitwise equal' if not bad else bad} to its plain "
+        f"version; device {us} per launch (device_ms, each call on its own "
+        f"copy), bound {b_ms * 1e3:.3f} us ({b_by})")
+    if bad:
+        fail(f"az_sim_step differs from its plain version at gomoku9 in "
+             f"{bad}")
+    return dict(batch=B, num_simulations=S, device_ms=dms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def resnet_iterate_phase(gen, dev):
@@ -2110,6 +2196,7 @@ def main():
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "games": ["connect4", "tictactoe", "gomoku9"],
+            **({"geometry": s["geometry"]} if "geometry" in s else {}),
             "by_path": {"gomoku9-dense": {
                 "launches": total11[k.name],
                 "launches_collect": split11["collect"][k.name],
@@ -2118,7 +2205,8 @@ def main():
                 "gate_ms": gate_us11.get(k.name),
                 "call_ms": kern11[k.name]["ms"],
                 **{f: kern11[k.name][f] for f in (
-                    "max_abs_err", "plain_ms", "bound_ms", "bound_by")}}}})
+                    "max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                    "geometry") if f in kern11[k.name]}}}})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({
@@ -2133,7 +2221,9 @@ def main():
             "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "games": ["connect4", "tictactoe"]})
+            "games": ["connect4", "tictactoe"]
+            + (["gomoku9"] if "gomoku9" in s else []),
+            **({"gomoku9": s["gomoku9"]} if "gomoku9" in s else {})})
     s = summary10["az_resnet_tower"]
     kernels.append({
         "name": "az_resnet_tower", "route": "cuda",

@@ -475,3 +475,137 @@ def test_supports_chunk_same_on_card(dev):
         assert fused.supports_chunk(env, model.to(dev), cfg) == cpu
         assert cpu == (game in ("connect4", "gomoku9") and mcfg.width >= 64
                        and cfg.num_simulations < 510)
+
+
+# ---- one launch of the descent and the apply on trees with every walk case
+
+WALK_GAMES = ("connect4", "tictactoe", "gomoku9")
+CASES = 6
+
+
+def walk_trees(env, B, seed, dev):
+    """Trees for one launch of ``az_descend_leaf`` and ``az_apply`` at the
+    last slot, S = max_moves + 8 (so the walk's cap, max_moves + 1, fits in
+    the tree).  Game b holds case b % 6:
+
+    0. a fresh root with uniform priors: every legal edge ties;
+    1. an empty board's fresh root (gomoku: the centre alone is legal);
+    2. a chain of dcap + 1 expanded nodes: the walk is cut at dcap;
+    3. two plies to an existing, visited, unexpanded child (``e_sel == 0``);
+    4. a finished root, unexpanded;
+    5. random play and S - 2 simulations of the plain search under the
+       exact stub.
+
+    Returns ``(cfg, tree, board, player, mc, slot)``."""
+    S = env.max_moves + 8
+    cfg = MCTSConfig(num_simulations=S, use_dirichlet=False)
+    A, R = env.action_dim, env.rows
+    board, player, mc, done = _sim_positions(env, B, seed, dev)
+    board = torch.where(done[:, None, None, None], 0, board).contiguous()
+    player = torch.where(done, 0, player).contiguous()
+    mc = torch.where(done, 0, mc).contiguous()
+    stub = exact_stub_evaluator(env)
+    tree = fused.Tree(env, B, S, dev)
+    probs, value = stub(env.observation_from_board(board, player
+                                                   ).reshape(B, -1))
+    fused.root_init_reference(env, cfg, tree, probs, value, None, board)
+    slot = S - 1
+    for s in range(1, slot):
+        fused.descend_leaf_reference(env, cfg, tree, board, player, mc, s)
+        fused.apply_reference(tree, s, *stub(tree.obs))
+    case = torch.arange(B, device=dev) % CASES
+    synth = case < 5
+    tree.visit[synth], tree.val[synth] = 0.0, 0.0
+    tree.child[synth], tree.prior[synth] = fused.ILLEGAL, 0.0
+    empty = case == 1
+    board[empty], player[empty], mc[empty] = 0, 0, 0
+    legal = (fused._heights(board) < R if env.rules == fused.RULES_GRAVITY
+             else env.valid_mask_board(board, None))
+    fresh = case <= 1
+    tree.visit[fresh, 0], tree.val[fresh, 0] = 1.5, 0.25
+    tree.child[fresh, 0] = torch.where(legal[fresh], fused.NO_CHILD,
+                                       fused.ILLEGAL).to(torch.int32)
+    tree.prior[fresh, 0] = torch.where(legal[fresh], 0.125, 0.0)
+
+    def link(games, node, a, kid, visit, val):
+        """Expanded ``node`` of ``games``: every edge open at prior 1/64,
+        edge ``a`` to ``kid`` at 1/2, which holds ``visit`` and ``val``."""
+        tree.child[games, node] = fused.NO_CHILD
+        tree.prior[games, node] = 1.0 / 64
+        tree.child[games, node, a] = kid
+        tree.prior[games, node, a] = 0.5
+        tree.visit[games, kid], tree.val[games, kid] = visit, val
+
+    chain = case == 2
+    dcap = tree.dcap
+    tree.visit[chain, 0], tree.val[chain, 0] = dcap + 2.5, 0.0
+    for k in range(dcap):
+        link(chain, k, (5 * k + 1) % A, k + 1, dcap + 1.5 - k, dcap + 1.0 - k)
+    two = case == 3
+    tree.visit[two, 0] = 3.5
+    link(two, 0, A // 2, 1, 2.5, 2.0)
+    link(two, 1, 0, 2, 1.0, 1.0)           # visited once, not expanded
+    tree.visit[case == 4, 0], tree.val[case == 4, 0] = 1.0, 0.5
+    return cfg, tree, board, player, mc, slot
+
+
+def check_walk_cases(env, tree, root_child):
+    """What the descent must have found in each case of :func:`walk_trees`
+    (``root_child``: the root edges before the launch)."""
+    pend = tree.pend.long()
+    B = pend.shape[0]
+    case = torch.arange(B, device=pend.device) % CASES
+    depth, leaf = pend[:, fused.P_DEPTH], pend[:, fused.P_LEAF]
+    alloc, terminal = pend[:, fused.P_ALLOC], pend[:, fused.P_TERMINAL]
+    first = (root_child != fused.ILLEGAL).to(torch.int32).argmax(-1)
+    fresh = case <= 1
+    assert (depth[fresh] == 1).all() and (alloc[fresh] == 1).all()
+    assert torch.equal(pend[fresh, fused.P_ACTION], first[fresh].long())
+    if env.name.startswith("gomoku"):
+        centre = (env.rows // 2) * env.cols + env.cols // 2
+        assert (pend[case == 1, fused.P_ACTION] == centre).all()
+    chain = case == 2
+    assert (depth[chain] == tree.dcap).all() and (leaf[chain] == tree.dcap
+                                                  ).all()
+    assert (alloc[chain] == 0).all() and (terminal[chain] == 1).all()
+    two = case == 3
+    assert (depth[two] == 2).all() and (leaf[two] == 2).all()
+    assert (alloc[two] == 0).all() and (pend[two, fused.P_PARENT] == 1).all()
+    done = case == 4
+    assert (depth[done] == 0).all() and (terminal[done] == 1).all()
+
+
+@pytest.mark.parametrize("B", [1, 17, 129, 256])
+@pytest.mark.parametrize("game", WALK_GAMES)
+def test_descend_and_apply_one_launch_bitwise(dev, game, B):
+    """One az_descend_leaf and one az_apply against their plain versions,
+    bit for bit, on trees with ties, the centre opening, a walk cut at
+    dcap, a terminal child and a finished root (:func:`walk_trees`), at
+    batches that fill no CTA, one and part of the next, and the chunk's."""
+    env = make_env(game)
+    cfg, tree, board, player, mc, slot = walk_trees(env, B, 21, dev)
+    tk, tp = tree.clone(), tree.clone()
+    n0 = (fused.K_DESCEND.launches, fused.K_APPLY.launches)
+    fused.descend_leaf(env, cfg, tk, board, player, mc, slot)
+    fused.descend_leaf_reference(env, cfg, tp, board, player, mc, slot)
+    for f in ("path", "apath", "pend", "valid", "obs"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+    check_walk_cases(env, tp, tree.child[:, 0])
+    g = torch.Generator(device=dev).manual_seed(B)
+    probs = torch.rand((B, env.action_dim), generator=g, device=dev)
+    value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+    fused.apply(tk, slot, probs, value)
+    fused.apply_reference(tp, slot, probs, value)
+    for f in ("visit", "val", "child", "prior"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+    assert (fused.K_DESCEND.launches, fused.K_APPLY.launches) == (
+        n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("game", WALK_GAMES)
+def test_search_kernel_geometry_on_card(dev, game):
+    """The kernels' own launch geometry equals search_geometry's."""
+    A = make_env(game).action_dim
+    for B in (1, 17, 129, 256, 512):
+        assert fused.search_kernel_geometry(B, A) == fused.search_geometry(
+            B, A)
