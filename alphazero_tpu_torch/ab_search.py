@@ -1,4 +1,4 @@
-"""A/B timing of the dense searches' walk kernels of two checkouts on one GPU.
+"""A/B timing of the search kernels' walk of two checkouts on one GPU.
 
 Run it once per checkout, in turns (parent, change, change, parent), on
 one card:
@@ -6,13 +6,20 @@ one card:
     python alphazero_tpu_torch/ab_search.py PATH_TO_CHECKOUT
 
 For the package under ``PATH_TO_CHECKOUT`` it builds ``csrc/search.cu``
-and makes self-play trees from seeded random positions, for ``connect4``
-at its S=200 with B=512 (self-play) and B=128 (the gate), and for
-``gomoku9-dense`` at its S=400 with B=256 and B=128; it runs the first S/2
-simulations under the exact stub evaluator and prints the device time of
-``az_descend_leaf`` and ``az_apply`` at slot S/2: CUDA events around 200
-launches queued behind a sleep kernel, so that they time the card and not
-the host.
+and ``csrc/sim.cu`` and makes search trees from seeded random positions.
+The dense searches: ``connect4`` at its S=200 with B=512 (self-play) and
+B=128 (the gate), and ``gomoku9-dense`` at its S=400 with B=256 and B=128;
+it runs the first S/2 simulations under the exact stub evaluator and
+prints the device time of ``az_descend_leaf`` and ``az_apply`` at slot
+S/2.  The per-simulation engine: ``connect4-resnet`` (S=200) at B=512 and
+B=128, ``tictactoe`` (S=50) at B=256, ``gomoku9`` and ``gomoku15`` (S=400)
+at B=256, with Dirichlet noise and the exact stub; it prints the device
+time of ``az_sim_step`` (the flush of slot S/2 - 1 and the walk of S/2)
+and of ``az_sim_flush`` (slot S/2).  Times are CUDA events around calls
+queued behind a sleep kernel, so that they time the card and not the
+host: 200 launches of the dense kernels, 10 of each sim kernel, every one
+on its own copy of the snapshot (a step may not be repeated on its own
+output).
 """
 
 import sys
@@ -39,6 +46,79 @@ def device_ms(fn, reps):
     return None
 
 
+def positions(env, B, gen, dev):
+    """B positions of random legal play, each stopped at its own length."""
+    import torch
+    state = env.init(B, dev)
+    target = torch.randint(0, 30, (B,), generator=gen, device=dev)
+    for t in range(30):
+        mask = env.valid_mask(state) & (t < target)[:, None]
+        noise = torch.rand(mask.shape, generator=gen, device=dev)
+        act = torch.where(mask, noise, -1.0).argmax(-1).to(torch.int32)
+        nxt = env.step(state, act)
+        live = mask.any(-1)
+        for k in vars(state):
+            old, new = getattr(state, k), getattr(nxt, k)
+            sel = live.reshape((B,) + (1,) * (old.dim() - 1))
+            setattr(state, k, torch.where(sel, new, old))
+    return state
+
+
+def on_copies(fn, snapshot, reps):
+    """``fn(copy)`` timed by :func:`device_ms`, every call on its own copy
+    of ``snapshot`` (a tuple of objects with ``clone``)."""
+    copies = iter([tuple(x.clone() for x in snapshot)
+                   for _ in range(1 + 4 * reps)])
+    return device_ms(lambda: fn(*next(copies)), reps)
+
+
+def sim_cells(dev):
+    """Device µs of ``az_sim_step`` and ``az_sim_flush`` per cell."""
+    import torch
+
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import expand_root
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    from alphazero_tpu_torch.search.tree import init_tree
+    out = {}
+    for name, B in (("connect4-resnet", 512), ("connect4-resnet", 128),
+                    ("tictactoe", 256), ("gomoku9", 256), ("gomoku15", 256)):
+        cfg = preset(name).mcts
+        env = make_env(preset(name).env)
+        S, half, A = cfg.num_simulations, cfg.num_simulations // 2, \
+            env.action_dim
+        stub = exact_stub_evaluator(env)
+
+        def ev(o, stub=stub):
+            return stub(o.reshape(o.shape[0], -1))
+
+        gen = torch.Generator(device=dev).manual_seed(B)
+        st = positions(env, B, gen, dev)
+        noise = fused.dirichlet_noise(1, A, B, cfg.dirichlet_alpha, gen,
+                                      dev)[0].T.contiguous()
+        tree = init_tree(env, st.board, st.current_player, st.move_count, S)
+        expand_root(env, cfg, tree, ev, st.done,
+                    torch.ones(B, dtype=torch.bool, device=dev), noise, None)
+        ss = sim.SimState.create(env, B, S, dev)
+        p = torch.zeros((B, A), device=dev)
+        v = torch.zeros((B,), device=dev)
+        for slot in range(1, half):
+            sim.sim_step(env, cfg, tree, ss, p, v, slot - 1, slot)
+            p, v = ev(ss.obs)
+        s_ms = on_copies(lambda t, s_: sim.sim_step(
+            env, cfg, t, s_, p, v, half - 1, half), (tree, ss), 10)
+        sim.sim_step(env, cfg, tree, ss, p, v, half - 1, half)
+        p, v = ev(ss.obs)
+        f_ms = on_copies(lambda t, s_: sim.flush(env, t, s_, p, v, half),
+                         (tree, ss), 10)
+        out[f"{name} B={B}"] = {"az_sim_step_us": s_ms and s_ms * 1e3,
+                                "az_sim_flush_us": f_ms and f_ms * 1e3}
+        del tree, ss
+    return out
+
+
 def main(root):
     sys.path.insert(0, root)
     import torch
@@ -57,19 +137,7 @@ def main(root):
         S, half = cfg.num_simulations, cfg.num_simulations // 2
         for B in batches:
             gen = torch.Generator(device=dev).manual_seed(B)
-            state = env.init(B, dev)
-            target = torch.randint(0, 30, (B,), generator=gen, device=dev)
-            for t in range(30):                  # random play, own lengths
-                mask = env.valid_mask(state) & (t < target)[:, None]
-                noise = torch.rand(mask.shape, generator=gen, device=dev)
-                act = torch.where(mask, noise, -1.0).argmax(-1).to(
-                    torch.int32)
-                nxt = env.step(state, act)
-                live = mask.any(-1)
-                for k in vars(state):
-                    old, new = getattr(state, k), getattr(nxt, k)
-                    sel = live.reshape((B,) + (1,) * (old.dim() - 1))
-                    setattr(state, k, torch.where(sel, new, old))
+            state = positions(env, B, gen, dev)
             live = ~state.done
             board = torch.where(live[:, None, None, None], state.board, 0
                                 ).contiguous()
@@ -91,6 +159,7 @@ def main(root):
             a_ms = device_ms(lambda: fused.apply(tree, half, p, v), 200)
             out[f"{name} B={B}"] = {"az_descend_leaf_us": d_ms and d_ms * 1e3,
                                     "az_apply_us": a_ms and a_ms * 1e3}
+    out.update(sim_cells(dev))
     print(f"{fused.__file__}: {out}", flush=True)
 
 

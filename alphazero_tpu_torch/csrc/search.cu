@@ -28,8 +28,8 @@
 // children's visit and value; the tree (≈ 67 MB at gomoku9, B=256, S=400)
 // does not all stay in the 50 MB L2.
 //
-// Layout of the two per-simulation kernels (az_descend_leaf, az_apply): a
-// group of G lanes serves one game, G a power of two from the action count
+// Layout of the two per-simulation kernels (az_descend_leaf, az_apply;
+// walk.cuh, shared with sim.cu): a group of G lanes serves one game, G a power of two from the action count
 // (group_size: 8 up to A=8, 16 up to 16, else 32, the most a warp shuffle
 // spans), so a warp holds 32/G games and a CTA of kThreads lanes
 // kThreads/G.  A walk step reads the node's A edges spread over the lanes
@@ -71,19 +71,15 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "walk.cuh"
 
 #define NO_CHILD (-1)
 #define ILLEGAL (-2)
 #define NEG_UCB (-1e30f)
-#define MAX_CELLS 256
-#define MAX_COLS 32
+// the most actions these kernels take (search/fused.py:supports_chunk
+// mirrors the games they take)
 #define MAX_A 128
 #define PEND_COLS 7
-// a game's move rules (envs/core.py: Env.rules)
-#define RULES_CELLS 0
-#define RULES_GRAVITY 1
-#define RULES_NEIGHBOURHOOD 2
 
 constexpr int kThreads = 128;  // threads per CTA
 
@@ -111,24 +107,6 @@ __device__ __forceinline__ bool any_line(const uint8_t* plane,
     for (int k = 0; k < K; ++k) all = all && plane[lines[l * K + k]];
     if (all) return true;
   }
-  return false;
-}
-
-// Whether action a is legal on the board of planes p0/p1 (0/1 per cell)
-// under the rules (cells and neighbourhood games: the action is the cell);
-// h holds the column heights under gravity, any whether a stone is on the
-// board (neighbourhood).
-template <int RULES, class T>
-__device__ __forceinline__ bool legal(const T* p0, const T* p1, const int* h,
-                                      bool any, int a, int R, int C) {
-  if (RULES == RULES_GRAVITY) return h[a] < R;
-  if (p0[a] || p1[a]) return false;
-  if (RULES == RULES_CELLS) return true;
-  if (!any) return a == (R / 2) * C + C / 2;
-  const int r = a / C, k = a % C;
-  for (int rr = max(r - 1, 0); rr <= min(r + 1, R - 1); ++rr)
-    for (int kk = max(k - 1, 0); kk <= min(k + 1, C - 1); ++kk)
-      if (p0[rr * C + kk] || p1[rr * C + kk]) return true;
   return false;
 }
 
@@ -194,18 +172,7 @@ __global__ void root_init_kernel(float* visit, float* val, int32_t* child,
   vl[0] = -value[b];
 }
 
-// ---- the per-simulation kernels: a group of G lanes per game
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// lanes per game for A actions (search/fused.py:search_geometry mirrors it)
-inline int group_size(int A) { return A <= 8 ? 8 : (A <= 16 ? 16 : 32); }
-
-// this lane's group's lanes in its warp
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  return (kFull >> (32 - G)) << ((threadIdx.x & 31) & ~(G - 1));
-}
+// ---- the per-simulation kernels: a group of G lanes per game (walk.cuh)
 
 template <int RULES, int G>
 __global__ void __launch_bounds__(kThreads) descend_leaf_kernel(
@@ -292,15 +259,7 @@ __global__ void __launch_bounds__(kThreads) descend_leaf_kernel(
       }
     }
     // the group's maximum of (u, -action): the first maximum of the row
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float ou = __shfl_xor_sync(kFull, best, off, G);
-      const int oa = __shfl_xor_sync(kFull, act, off, G);
-      if (ou > best || (ou == best && oa < act)) {
-        best = ou;
-        act = oa;
-      }
-    }
+    group_first_max<G>(best, act);
     const int src = act & (G - 1);  // the lane that read the winning edge
     const int c_sel = __shfl_sync(kFull, c_best, src, G);
     const float v_sel = __shfl_sync(kFull, v_best, src, G);
@@ -523,39 +482,6 @@ __global__ void root_counts_kernel(const float* visit, const float* val,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
-// The games these kernels take (search/fused.py:supports_chunk mirrors it).
-bool game_ok(int A, int R, int C, int rules) {
-  if (A < 1 || A > MAX_A || R * C > MAX_CELLS) return false;
-  if (rules == RULES_GRAVITY) return C <= MAX_COLS && A == C;
-  return (rules == RULES_CELLS || rules == RULES_NEIGHBOURHOOD) && A == R * C;
-}
-
-// launch(std::integral_constant<int, RULES>) for the game's rules, then the
-// launch's error code
-template <class Launch>
-int with_rules(int A, int R, int C, int rules, Launch launch) {
-  if (!game_ok(A, R, C, rules)) return (int)cudaErrorInvalidValue;
-  if (rules == RULES_GRAVITY)
-    launch(std::integral_constant<int, RULES_GRAVITY>());
-  else if (rules == RULES_NEIGHBOURHOOD)
-    launch(std::integral_constant<int, RULES_NEIGHBOURHOOD>());
-  else
-    launch(std::integral_constant<int, RULES_CELLS>());
-  return (int)cudaGetLastError();
-}
-
-// launch(std::integral_constant<int, G>) for the group size of A actions
-template <class Launch>
-void with_group(int A, Launch launch) {
-  const int g = group_size(A);
-  if (g == 8)
-    launch(std::integral_constant<int, 8>());
-  else if (g == 16)
-    launch(std::integral_constant<int, 16>());
-  else
-    launch(std::integral_constant<int, 32>());
-}
-
 // CTAs of the group kernels for B games
 inline int group_blocks(int B, int A) {
   const int games = kThreads / group_size(A);
@@ -582,7 +508,7 @@ int az_root_init(void* visit, void* val, void* child, void* prior,
                  const void* probs, const void* value, const void* noise,
                  const void* board, int B, int N, int A, int R, int C,
                  int rules, float eps, void* stream) {
-  return with_rules(A, R, C, rules, [&](auto rl) {
+  return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
     root_init_kernel<decltype(rl)::value>
         <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
             (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
@@ -608,7 +534,7 @@ int az_descend_leaf(const void* visit, const void* val, const void* child,
                     void* pend, void* valid, void* obs, int B, int N, int A,
                     int R, int C, int F, int L, int K, int dcap, int max_moves,
                     int rules, int slot, int az, float c_puct, void* stream) {
-  return with_rules(A, R, C, rules, [&](auto rl) {
+  return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
     with_group(A, [&](auto gl) {
       descend_leaf_kernel<decltype(rl)::value, decltype(gl)::value>
           <<<group_blocks(B, A), kThreads, 0, (cudaStream_t)stream>>>(
@@ -644,7 +570,7 @@ int az_move_tail(const void* visit, const void* val, const void* child,
                  int B, int N, int A, int R, int C, int L, int K,
                  int max_moves, int rules, int temperature_moves,
                  void* stream) {
-  return with_rules(A, R, C, rules, [&](auto rl) {
+  return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
     move_tail_kernel<decltype(rl)::value>
         <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
             (const float*)visit, (const float*)val, (const int32_t*)child,

@@ -181,16 +181,23 @@ def expand_backup(tree: Tree, slot: int, path, depth, parent, action, alloc,
     backup of ``leaf_value`` along ``path`` with the leaf at ``depth``: one
     visit per ply, the value negated per ply, the expanded flag at the leaf
     where ``do_expand``."""
-    B, dcap = path.shape
+    B = path.shape[0]
     dev = path.device
     tree.prior[:, slot] = torch.where(do_expand[:, None], prior_slot,
                                       torch.full_like(prior_slot, NEG))
     b = torch.arange(B, device=dev)[alloc]
     tree.children[b, parent[alloc], action[alloc]] = slot
-    pos = torch.arange(dcap, device=dev)[None]
-    full_path = torch.where(pos == depth[:, None], leaf[:, None],
-                            path.long())
-    add_backup(tree.stats, full_path, depth, leaf_value, do_expand)
+    add_backup(tree.stats, leaf_path(path, depth, leaf), depth, leaf_value,
+               do_expand)
+
+
+def leaf_path(path, depth, leaf):
+    """``(B, dcap + 1)`` int64: each walk's ``path`` with its ``leaf`` at
+    ply ``depth``, so that a walk cut at its cap (depth == dcap) keeps its
+    leaf; the columns past ``depth`` are not plies of the walk."""
+    pos = torch.arange(path.shape[1] + 1, device=path.device)[None]
+    padded = torch.cat([path.long(), leaf[:, None].long()], dim=1)
+    return torch.where(pos == depth[:, None], leaf[:, None], padded)
 
 
 def _plies(full_path, depth):
@@ -269,8 +276,7 @@ def simulate_round(env, cfg: MCTSConfig, tree: Tree, slot_base: int,
         root_case = parent < 0
         alloc = (parent >= 0) & (child < 0)
         leaf = torch.where(root_case, 0, torch.where(alloc, slot, child))
-        full_path = torch.where(pos == depth[:, None], leaf[:, None],
-                                path.long())
+        full_path = leaf_path(path, depth, leaf)
         if active:
             children_v[ar[alloc], parent[alloc], action[alloc]] = slot
             bi, _, nodes = _plies(full_path, depth)

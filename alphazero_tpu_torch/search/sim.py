@@ -25,14 +25,19 @@ parent, action, alloc, leaf node, terminal, won, leaf player), the leaf's
 legal mask ``valid (B, A)`` and its observation ``obs (B, F, R, C)``
 float32, the network's input.
 
-Each kernel is hand-written CUDA (``csrc/sim.cu``, one thread per game) with
-its plain PyTorch version here, made of the portable engine's own parts
-(``search/mcts.py``: :func:`descend`, :func:`leaf_finish`,
-:func:`expand_backup`), so the engines agree exactly.  A wrapper runs the
-plain version only for CPU tensors; for CUDA tensors it launches the kernel
-or raises.  The CUDA source is built with ``-fmad=false`` and follows the
-plain version's float32 operation order: kernel and plain version agree bit
-for bit.
+Each kernel is hand-written CUDA (``csrc/sim.cu``) with its plain PyTorch
+version here, made of the portable engine's own parts (``search/mcts.py``:
+:func:`descend`, :func:`leaf_finish`, :func:`expand_backup`), so the engines
+agree exactly.  Both kernels give each game a group of G lanes, G from the
+action count (:func:`sim_geometry`: 8 at connect4, 16 at tictactoe, 32 at
+gomoku, up to 256 actions): the update spreads its row of priors over the
+lanes and its backup over the plies, the walk reads a node's edges across
+the group and reduces them by shuffles to the serial loop's first maximum,
+and the leaf finish spreads the win check, legal mask and observation.  A
+wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.  The CUDA source is built with
+``-fmad=false`` and follows the plain version's float32 operation order:
+kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
-from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
+from alphazero_tpu_torch.ops.build import (CudaKernel, check, load, plain,
+                                           stream)
 from alphazero_tpu_torch.search.mcts import (SearchResult, descend,
                                              expand_backup, expand_root,
                                              leaf_finish, prep_priors,
@@ -152,6 +158,53 @@ K_SIM_FLUSH = CudaKernel("sim.cu", "az_sim_flush", [
     _I, _I, _I, _I, _I, _P])             # slot B N A dcap stream
 
 KERNELS = [K_SIM_STEP, K_SIM_FLUSH]
+
+SIM_THREADS = 128     # threads per CTA of both kernels
+MAX_ACTIONS = 256     # the most actions they take (boards of <= 256 cells)
+
+
+def sim_group(A: int) -> int:
+    """Lanes per game of ``az_sim_step`` and ``az_sim_flush`` for A actions
+    (``csrc/walk.cuh:group_size``): the smallest of 8, 16 and 32 that holds
+    A, and 32 above that (a warp; each lane then reads up to 8 edges)."""
+    if not 1 <= A <= MAX_ACTIONS:
+        raise ValueError(f"the per-simulation kernels take 1 to "
+                         f"{MAX_ACTIONS} actions, not {A}")
+    return 8 if A <= 8 else 16 if A <= 16 else 32
+
+
+def sim_geometry(B: int, A: int) -> dict:
+    """Launch geometry of ``az_sim_step`` and ``az_sim_flush`` at B games
+    of A actions: a group of G lanes per game, ``SIM_THREADS // G`` games
+    per CTA, as many CTAs as the games need, and the edges a lane reads per
+    walk step (a whole number of group widths: 4 up to 128 actions, 8
+    above)."""
+    if B < 1:
+        raise ValueError(f"batch {B} < 1")
+    G = sim_group(A)
+    games = SIM_THREADS // G
+    return {"lanes_per_game": G, "games_per_cta": games,
+            "ctas": -(-B // games), "threads_per_cta": SIM_THREADS,
+            "edges_per_lane": 1 if G < 32 else 4 if A <= 128 else 8}
+
+
+def sim_kernel_geometry(B: int, A: int) -> dict:
+    """:func:`sim_geometry` as the kernels' library reports it
+    (``az_sim_geometry``; needs the CUDA toolkit).  Raises if the two
+    disagree."""
+    lib = load("sim.cu")
+    lib.az_sim_geometry.argtypes = [_I, _I, _P]
+    out = (ctypes.c_int * 5)()
+    rc = lib.az_sim_geometry(B, A, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"az_sim_geometry: CUDA error {rc} "
+                           f"({lib.az_error_string(rc).decode()})")
+    got = dict(zip(("lanes_per_game", "games_per_cta", "ctas",
+                    "threads_per_cta", "edges_per_lane"), out))
+    if got != sim_geometry(B, A):
+        raise RuntimeError(f"sim geometry: the kernels report {got}, "
+                           f"sim_geometry gives {sim_geometry(B, A)}")
+    return got
 
 
 def _check_state(env, tree: Tree, st: SimState, probs, value, dev):

@@ -37,17 +37,21 @@ Phases (any failure exits non-zero before the final line):
      (collect, train, gate); seconds of collect, train and gate, checks on
      the gate's searches, the score, the loss and the promote/revert
      bookkeeping; then one gate move (both agents) profiled;
-  8. the per-simulation engine (kernels 3 and 4, csrc/sim.cu) on the card
-     against its plain version, bit for bit, under the exact stub evaluator:
-     connect4 at self-play's B=512 and the gate's B=128, S=200, with
-     Dirichlet noise fed to both and live, won and drawn roots mixed, and
-     tictactoe at B=256, S=50; then az_sim_step
-     and az_sim_flush each against its plain version on a snapshot of a
-     real-weights connect4-resnet search, with times and bounds; az_sim_step
-     at gomoku9's A=81 (B=256, S=400, an exact-stub tree): one step bitwise
-     against its plain version, its device time (``device_ms``, each call
-     on its own copy of the snapshot) and bound; and one vanilla (rollout)
-     search on the card;
+  8. the per-simulation engine (kernels 3 and 4, csrc/sim.cu, a group of
+     lanes per game): the kernels' launch geometry (lanes per game, games
+     per CTA, CTAs, edges a lane reads) at every batch and game below; the
+     whole search on the card against its plain version, bit for bit,
+     under the exact stub evaluator with Dirichlet noise fed to both and
+     live, won and drawn roots mixed: connect4 at self-play's B=512 and
+     the gate's B=128, S=200, tictactoe at B=256, S=50 and gomoku9 at
+     B=256, S=400; then az_sim_step and az_sim_flush each against its
+     plain version on a snapshot of a real-weights connect4-resnet search,
+     with times and bounds; both on exact-stub trees at connect4's B=128,
+     tictactoe's B=256, gomoku9's A=81 and gomoku15's A=225 (B=256,
+     S=400): one step and one flush bitwise against their plain versions,
+     their device times (``device_ms``, each call on its own copy of the
+     snapshot) and bounds; one fused gomoku9 self-play move profiled; and
+     one vanilla (rollout) search on the card;
   9. the second model family's outer iteration,
      ``Trainer(preset("connect4-resnet")).iterate(vanilla_eval=False)`` at
      full width: launch counts measured per phase (the dense kernels must
@@ -706,16 +710,34 @@ def sim_phase(gen, dev):
     summary = {}
     search_err = 0.0
     c4 = preset("connect4-resnet")
-    # self-play's batch and the gate's (each agent's half), then tictactoe
+    # the kernels' launch geometry (a group of lanes per game) at every
+    # batch and game the searches below give them
+    geometry = {}
     for pname, B in (("connect4-resnet", c4.train.selfplay_batch),
                      ("connect4-resnet", c4.train.gate_games // 2),
-                     ("tictactoe", preset("tictactoe").train.selfplay_batch)):
+                     ("tictactoe", 256), ("gomoku9", 256), ("gomoku15", 256)):
+        A = make_env(preset(pname).env).action_dim
+        geo = sim.sim_kernel_geometry(B, A)
+        geometry[f"{pname} B={B}"] = geo
+        log(f"[sim geometry] {pname} B={B} A={A}: {geo['lanes_per_game']} "
+            f"lanes per game, {geo['games_per_cta']} games per CTA, "
+            f"{geo['ctas']} CTAs of {geo['threads_per_cta']} threads, "
+            f"{geo['edges_per_lane']} edges a lane per walk step")
+    # self-play's batch and the gate's (each agent's half), tictactoe, and
+    # gomoku9's self-play at its S=400 (won roots put in by hand: random
+    # play rarely completes a line of five)
+    for pname, B in (("connect4-resnet", c4.train.selfplay_batch),
+                     ("connect4-resnet", c4.train.gate_games // 2),
+                     ("tictactoe", preset("tictactoe").train.selfplay_batch),
+                     ("gomoku9", preset("gomoku9").train.selfplay_batch)):
         pc = preset(pname)
         env, mcfg = make_env(pc.env), pc.mcts
         S, A = mcfg.num_simulations, env.action_dim
         st = random_positions(env, B, gen, dev)
-        if env.name == "connect4":
+        if env.name != "tictactoe":
             st = with_drawn_game(st, env)
+        if env.name == "gomoku9":
+            st = won_roots(env, st, slice(B // 2, B // 2 + min(8, B // 4)))
         roots = (st.board, st.current_player, st.move_count, st.done)
         won = st.done & (st.winner >= 0)
         drawn = st.done & (st.winner < 0)
@@ -738,7 +760,7 @@ def sim_phase(gen, dev):
         search_err = max([search_err] + [
             max_diff(getattr(got, k), getattr(want, k)) for k in fields])
         sums = got.visit_counts.sum(-1)
-        log(f"[sim search] {env.name} B={B} S={S} Dirichlet, exact stub, "
+        log(f"[sim search] {pname} B={B} S={S} Dirichlet, exact stub, "
             f"{int((~st.done).sum())} live / {int(won.sum())} won / "
             f"{int(drawn.sum())} drawn roots: mismatched {bad or 'none'}; "
             f"kernel search {t_kern:.2f} s, plain search {t_plain:.2f} s")
@@ -811,16 +833,24 @@ def sim_phase(gen, dev):
                  {"tree": tree, "st": ss, "p": p, "v": v},
                  [out(lambda s, r, f=f: getattr(s["tree"], f), f)
                   for f in tree_f], reps=30, preps=2, fresh=True)
-    plies = int((depth + 1).sum())
-    b_ms, b_by = bound(B * A * 4 + B * 4 + B * 32 + B * A + plies * 4
-                       + plies * 24 + B * A * 4 + B * 4,
-                       f32_ops=2.0 * plies)
+    b_ms, b_by = sim_flush_bound(B, A, depth)
     summary["az_sim_flush"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
-    summary["az_sim_step"]["gomoku9"] = sim_step_at_81(gen, dev)
+    for name in ("az_sim_step", "az_sim_flush"):
+        summary[name]["geometry"] = geometry
+    # one step and one flush on exact-stub trees at the gate's connect4
+    # batch, tictactoe, gomoku9's A=81 and gomoku15's A=225
+    for name in ("az_sim_step", "az_sim_flush"):
+        summary[name]["by_cell"] = {}
+    for pname, B in (("connect4-resnet", c4.train.gate_games // 2),
+                     ("tictactoe", 256), ("gomoku9", 256), ("gomoku15", 256)):
+        step, flush = sim_step_at(pname, B, gen, dev)
+        summary["az_sim_step"]["by_cell"][f"{pname} B={B}"] = step
+        summary["az_sim_flush"]["by_cell"][f"{pname} B={B}"] = flush
     # the searches above held both kernels against the plain search too
     for name in ("az_sim_step", "az_sim_flush"):
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
                                            search_err)
+    summary["az_sim_step"]["gomoku9_fused_move"] = gomoku9_move_profile(dev)
 
     # vanilla (rollout) search on the card
     env = make_env("tictactoe")
@@ -868,22 +898,74 @@ def sim_step_bound(sim, env, mcfg, tree, ss, p, v, slot):
     return b_ms, b_by, depth
 
 
-def sim_step_at_81(gen, dev):
-    """az_sim_step at gomoku9's A=81 with the gomoku9 preset's self-play
-    batch and search (B=256, S=400): a tree of S/2 simulations under the
-    exact stub, one step held bitwise against its plain version, then its
-    device time by device_ms with every call on its own copy of the
-    snapshot (a step may not be repeated on its own output), and its bound.
-    Returns the summary."""
+def gomoku9_move_profile(dev):
+    """One self-play move of the ``gomoku9`` preset (ResNet 128×8, B=256,
+    S=400, random weights from seed 0) on the fused tower, wall time and
+    device profile.  Returns its summary."""
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.data import create
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    from alphazero_tpu_torch.training.selfplay import (init_selfplay,
+                                                       selfplay_step)
+    cfg = preset("gomoku9")
+    env = make_env(cfg.env)
+    model = build_model(cfg.model, env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    ev = make_eval_fn(model, params, fused_resnet=True)
+    B = cfg.train.selfplay_batch
+    sp = [init_selfplay(env, B, 1, dev), create(env, cfg.replay.capacity,
+                                                dev)]
+
+    def move():
+        sp[0], sp[1] = selfplay_step(env, ev, cfg.mcts, sp[0], sp[1])
+
+    move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    move()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(move)
+    dev_ms = print_profile(f"one gomoku9 self-play move, fused evaluator "
+                           f"(B={B}, S={cfg.mcts.num_simulations})", prof,
+                           wall)
+    return dict(wall_ms=wall, busy_ms=prof[1] / 1e3 if prof else None,
+                idle_share=1 - prof[1] / 1e3 / wall if prof else None,
+                dev_ms=dev_ms,
+                launches={k: n for k, (n, _) in prof[0].items()}
+                if prof else None)
+
+
+def sim_flush_bound(B, A, depth):
+    """Bound of ``az_sim_flush`` of walks of ``depth (B,)``: the meta row,
+    legal mask, probs and value read, the new prior row written, the path
+    read and each ply's three stats read and written, two additions per
+    ply.  ``(bound ms, bound by)``."""
+    plies = int((depth + 1).sum())
+    return bound(B * A * 4 + B * 4 + B * 32 + B * A + plies * 4
+                 + plies * 24 + B * A * 4 + B * 4, f32_ops=2.0 * plies)
+
+
+def sim_step_at(pname, B, gen, dev):
+    """az_sim_step and az_sim_flush at a preset's action count and search
+    with B games (gomoku9: A=81, gomoku15: A=225, both S=400): a tree of
+    S/2 simulations under the exact stub, one step held
+    bitwise against its plain version, then the device time of the step
+    and of the flush after it by device_ms with every call on its own copy
+    of the snapshot (neither may be repeated on its own output), and their
+    bounds.  Returns the step's and the flush's summaries."""
     from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.envs import make_env
     from alphazero_tpu_torch.search import fused, sim
     from alphazero_tpu_torch.search.mcts import expand_root
     from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.search.tree import init_tree
-    pc = preset("gomoku9")
+    pc = preset(pname)
     env, mcfg = make_env(pc.env), pc.mcts
-    B, S, A = pc.train.selfplay_batch, mcfg.num_simulations, env.action_dim
+    S, A = mcfg.num_simulations, env.action_dim
     stub = exact_stub_evaluator(env)
     ev = lambda o: stub(o.reshape(o.shape[0], -1))  # noqa: E731
     st = random_positions(env, B, gen, dev)
@@ -902,28 +984,41 @@ def sim_step_at_81(gen, dev):
     tp, sp = tree.clone(), ss.clone()
     sim.sim_step_reference(env, mcfg, tp, sp, p, v, half - 1, half)
     reps = 10
-    pool = iter([(tree.clone(), ss.clone()) for _ in range(1 + 4 * reps)])
 
-    def step():
-        t, s_ = next(pool)
-        sim.sim_step(env, mcfg, t, s_, p, v, half - 1, half)
+    def timed(name, fn):
+        pool = iter([(tree.clone(), ss.clone()) for _ in range(1 + 4 * reps)])
+        return device_ms([(name, lambda: fn(*next(pool)), reps)])[name]
 
-    dms = device_ms([("az_sim_step", step, reps)])["az_sim_step"]
-    b_ms, b_by, _ = sim_step_bound(sim, env, mcfg, tree, ss, p, v, half)
+    s_ms = timed("az_sim_step", lambda t, s_: sim.sim_step(
+        env, mcfg, t, s_, p, v, half - 1, half))
+    b_ms, b_by, depth = sim_step_bound(sim, env, mcfg, tree, ss, p, v, half)
     bad = [f for f in ("stats", "prior", "children")
            if not torch.equal(getattr(tree, f), getattr(tp, f))]
     bad += [f for f in ("path", "apath", "meta", "valid", "obs")
             if not torch.equal(getattr(ss, f), getattr(sp, f))]
-    us = "not measured" if dms is None else f"{dms * 1e3:.2f} us"
-    log(f"[sim step at A=81] gomoku9 B={B} S={S}, slot {half} of an exact-"
-        f"stub search: {'bitwise equal' if not bad else bad} to its plain "
-        f"version; device {us} per launch (device_ms, each call on its own "
-        f"copy), bound {b_ms * 1e3:.3f} us ({b_by})")
+    p, v = ev(ss.obs)
+    f_ms = timed("az_sim_flush", lambda t, s_: sim.flush(env, t, s_, p, v,
+                                                         half))
+    fb_ms, fb_by = sim_flush_bound(B, A, depth)
+    sim.flush(env, tree, ss, p, v, half)
+    sim.flush_reference(tp, sp, p, v, half)
+    bad += [f"flush {f}" for f in ("stats", "prior", "children")
+            if not torch.equal(getattr(tree, f), getattr(tp, f))]
+    us = {k: "not measured" if t is None else f"{t * 1e3:.2f} us"
+          for k, t in (("step", s_ms), ("flush", f_ms))}
+    log(f"[sim kernels at A={A}] {pname} B={B} S={S}, slot {half} of an "
+        f"exact-stub search: {'bitwise equal' if not bad else bad} to the "
+        f"plain versions; az_sim_step {us['step']} per launch (device_ms, "
+        f"each call on its own copy), bound {b_ms * 1e3:.3f} us ({b_by}); "
+        f"az_sim_flush {us['flush']}, bound {fb_ms * 1e3:.3f} us ({fb_by})")
     if bad:
-        fail(f"az_sim_step differs from its plain version at gomoku9 in "
-             f"{bad}")
-    return dict(batch=B, num_simulations=S, device_ms=dms, bound_ms=b_ms,
-                bound_by=b_by)
+        fail(f"the sim kernels differ from their plain versions at {pname} "
+             f"in {bad}")
+    geo = sim.sim_kernel_geometry(B, A)
+    return (dict(batch=B, num_simulations=S, device_ms=s_ms, bound_ms=b_ms,
+                 bound_by=b_by, geometry=geo),
+            dict(batch=B, num_simulations=S, device_ms=f_ms, bound_ms=fb_ms,
+                 bound_by=fb_by, geometry=geo))
 
 
 def resnet_iterate_phase(gen, dev):
@@ -2221,9 +2316,8 @@ def main():
             "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "games": ["connect4", "tictactoe"]
-            + (["gomoku9"] if "gomoku9" in s else []),
-            **({"gomoku9": s["gomoku9"]} if "gomoku9" in s else {})})
+            "games": ["connect4", "tictactoe", "gomoku9", "gomoku15"],
+            "geometry": s["geometry"], "by_cell": s["by_cell"]})
     s = summary10["az_resnet_tower"]
     kernels.append({
         "name": "az_resnet_tower", "route": "cuda",

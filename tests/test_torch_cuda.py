@@ -14,7 +14,7 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig, ModelConfig
 from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.models import build_model, init_params
-from alphazero_tpu_torch.search import fused
+from alphazero_tpu_torch.search import fused, sim
 from alphazero_tpu_torch.search.stub import drawn_board, exact_stub_evaluator
 
 pytestmark = pytest.mark.cuda
@@ -609,3 +609,191 @@ def test_search_kernel_geometry_on_card(dev, game):
     for B in (1, 17, 129, 256, 512):
         assert fused.search_kernel_geometry(B, A) == fused.search_geometry(
             B, A)
+
+
+# ---- one launch of az_sim_step and az_sim_flush on trees of every walk case
+
+SIM_GAMES = ("connect4", "tictactoe", "gomoku9", "gomoku15")
+SIM_CASES = 7
+
+
+def win_in_one(env):
+    """``(cells, action)``: player 0's stones on every cell of a line but
+    the last (the bottom row under gravity), and the move that completes
+    it."""
+    lines = [tuple(int(c) for c in line) for line in env.lines]
+    if env.rules == fused.RULES_GRAVITY:
+        bottom = (env.rows - 1) * env.cols
+        line = next(li for li in lines if min(li) >= bottom)
+        return line[:-1], line[-1] % env.cols
+    return lines[0][:-1], lines[0][-1]
+
+
+def sim_trees(env, B, seed, dev):
+    """Trees in ``search/tree.py``'s layout for one ``az_sim_step`` with
+    nothing to flush (previous slot 0, slot S - 2), one that flushes it
+    (slot S - 1) and one ``az_sim_flush``, S = max_moves + 8 (the walk's
+    cap, max_moves + 1, fits in the tree).  Game b holds case b % 7:
+
+    0. a fresh root with uniform priors: every legal edge ties (its flush
+       allocates and expands);
+    1. an empty board's fresh root (gomoku: the centre alone is legal);
+    2. a chain of dcap + 1 expanded nodes: the walk is cut at dcap (no
+       allocation, terminal); under gravity the board fills first, so the
+       chain plays max_moves moves round the columns to an unexpanded node;
+    3. two plies to an existing, visited, unexpanded child (``e_sel ==
+       0``): no allocation;
+    4. a finished root, unexpanded: the root case;
+    5. a win in one: the edge of the highest prior completes the mover's
+       line (allocation, terminal, won);
+    6. random play and a few simulations of the plain search under the
+       exact stub (finished roots among them).
+
+    The state carried in is stale (the last random simulation's), as the
+    kernel must ignore it at previous slot 0.  Returns ``(cfg, tree, st,
+    slot)``."""
+    from alphazero_tpu_torch.search.mcts import expand_root
+    from alphazero_tpu_torch.search.tree import NEG, init_tree
+    S = env.max_moves + 8
+    cfg = MCTSConfig(num_simulations=S, use_dirichlet=False)
+    A = env.action_dim
+    board, player, mc, done = _sim_positions(env, B, seed, dev)
+    case = torch.arange(B, device=dev) % SIM_CASES
+    empty = done | (case == 1) | (case == 2) | (case == 3)
+    board = torch.where(empty[:, None, None, None], 0, board)
+    player, mc = torch.where(empty, 0, player), torch.where(empty, 0, mc)
+    win = case == 5
+    cells, win_action = win_in_one(env)
+    board[win], player[win], mc[win] = 0, 0, len(cells)
+    for cell in cells:
+        board[win, 0, cell // env.cols, cell % env.cols] = 1
+    stub = exact_stub_evaluator(env)
+    ev = lambda obs: stub(obs.reshape(obs.shape[0], -1))  # noqa: E731
+    tree = init_tree(env, board.contiguous(), player.contiguous(),
+                     mc.contiguous(), S)
+    expand_root(env, cfg, tree, ev, done & (case == 6), None, None, None)
+    st = sim.SimState.create(env, B, S, dev)
+    p = torch.zeros((B, A), device=dev)
+    v = torch.zeros((B,), device=dev)
+    for s in range(1, 8):
+        sim.sim_step_reference(env, cfg, tree, st, p, v, s - 1, s)
+        p, v = ev(st.obs)
+    sim.flush_reference(tree, st, p, v, 7)
+
+    synth = case < 6
+    tree.stats[synth], tree.prior[synth], tree.children[synth] = \
+        0.0, NEG, -1
+    legal = env.valid_mask_board(tree.root_board, None)
+    fresh = (case <= 1) | win
+    tree.stats[fresh, 0] = torch.tensor([1.0, 0.25, 1.0], device=dev)
+    tree.prior[fresh, 0] = torch.where(legal[fresh], 0.125, NEG)
+    tree.prior[win, 0, win_action] = 0.5
+
+    def link(games, node, a, kid, visit, val, expanded):
+        """Expanded ``node`` of ``games``: every edge open at prior 1/64,
+        edge ``a`` to ``kid`` at 1/2, which holds the given stats."""
+        tree.prior[games, node] = 1.0 / 64
+        tree.prior[games, node, a] = 0.5
+        tree.children[games, node, a] = kid
+        tree.stats[games, kid] = torch.tensor([visit, val, expanded],
+                                              device=dev)
+
+    chain = case == 2
+    n = chain_depth(env, st)
+    gravity = env.rules == fused.RULES_GRAVITY
+    tree.stats[chain, 0] = torch.tensor([n + 2.0, 0.0, 1.0], device=dev)
+    for k in range(n):
+        link(chain, k, k % A if gravity else (5 * k + 1) % A, k + 1,
+             n + 1.0 - k, n - k, 0.0 if gravity and k == n - 1 else 1.0)
+    two = case == 3
+    tree.stats[two, 0] = torch.tensor([3.0, 0.0, 1.0], device=dev)
+    link(two, 0, A // 2, 1, 2.0, 2.0, 1.0)
+    link(two, 1, 0, 2, 1.0, 1.0, 0.0)      # visited once, not expanded
+    tree.stats[case == 4, 0] = torch.tensor([1.0, 0.5, 0.0], device=dev)
+    return cfg, tree, st, S - 2
+
+
+def chain_depth(env, st):
+    """The depth of case 2's walk: dcap, or max_moves under gravity."""
+    dcap = st.path.shape[1]
+    return env.max_moves if env.rules == fused.RULES_GRAVITY else dcap
+
+
+def check_sim_cases(env, st, root_prior, slot):
+    """What the walk of :func:`sim_trees`' first step must have found in
+    each case (``root_prior``: the root rows before the launch)."""
+    meta = st.meta.long()
+    B = meta.shape[0]
+    case = torch.arange(B, device=meta.device) % SIM_CASES
+    depth, leaf = meta[:, sim.M_DEPTH], meta[:, sim.M_LEAF]
+    alloc, terminal = meta[:, sim.M_ALLOC], meta[:, sim.M_TERMINAL]
+    action, won = meta[:, sim.M_ACTION], meta[:, sim.M_WON]
+    first = (root_prior > -1e29).to(torch.int32).argmax(-1).long()
+    fresh = case <= 1
+    assert (depth[fresh] == 1).all() and (alloc[fresh] == 1).all()
+    assert (leaf[fresh] == slot).all()
+    assert torch.equal(action[fresh], first[fresh])
+    if env.name.startswith("gomoku"):
+        centre = (env.rows // 2) * env.cols + env.cols // 2
+        assert (action[case == 1] == centre).all()
+    chain = case == 2
+    n = chain_depth(env, st)
+    assert (depth[chain] == n).all() and (leaf[chain] == n).all()
+    assert (alloc[chain] == 0).all() and (terminal[chain] == 1).all()
+    two = case == 3
+    assert (depth[two] == 2).all() and (leaf[two] == 2).all()
+    assert (alloc[two] == 0).all() and (meta[two, sim.M_PARENT] == 1).all()
+    done = case == 4
+    assert (depth[done] == 0).all() and (terminal[done] == 1).all()
+    assert (meta[done, sim.M_PARENT] == -1).all() and (leaf[done] == 0).all()
+    win = case == 5
+    assert (depth[win] == 1).all() and (alloc[win] == 1).all()
+    assert (terminal[win] == 1).all() and (won[win] == 1).all()
+    assert (action[win] == win_in_one(env)[1]).all()
+
+
+def sim_outputs_equal(tk, sk, tp, sp):
+    for f in ("stats", "prior", "children"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+    for f in ("path", "apath", "meta", "valid", "obs"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+
+
+@pytest.mark.parametrize("B", [1, 17, 129, 256])
+@pytest.mark.parametrize("game", SIM_GAMES)
+def test_sim_step_and_flush_one_launch_bitwise(dev, game, B):
+    """az_sim_step with nothing to flush, az_sim_step flushing each kind of
+    simulation (alloc and expand, alloc and terminal, no alloc, the root
+    case), then az_sim_flush, each against its plain version bit for bit,
+    on the trees of :func:`sim_trees` (ties, the centre opening, a walk cut
+    at dcap, a terminal child, a finished root, a win in one), at batches
+    that fill no CTA, one and part of the next, and self-play's, up to
+    gomoku15's 225 actions."""
+    env = make_env(game)
+    cfg, tree, st, slot = sim_trees(env, B, 21, dev)
+    tk, sk, tp, sp = tree.clone(), st.clone(), tree.clone(), st.clone()
+    g = torch.Generator(device=dev).manual_seed(B)
+    n0 = (sim.K_SIM_STEP.launches, sim.K_SIM_FLUSH.launches)
+    for prev, cur in ((0, slot), (slot, slot + 1)):
+        probs = torch.rand((B, env.action_dim), generator=g, device=dev)
+        value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+        sim.sim_step(env, cfg, tk, sk, probs, value, prev, cur)
+        sim.sim_step_reference(env, cfg, tp, sp, probs, value, prev, cur)
+        sim_outputs_equal(tk, sk, tp, sp)
+        if prev == 0:
+            check_sim_cases(env, sp, tree.prior[:, 0], slot)
+    probs = torch.rand((B, env.action_dim), generator=g, device=dev)
+    value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+    sim.flush(env, tk, sk, probs, value, slot + 1)
+    sim.flush_reference(tp, sp, probs, value, slot + 1)
+    sim_outputs_equal(tk, sk, tp, sp)
+    assert (sim.K_SIM_STEP.launches, sim.K_SIM_FLUSH.launches) == (
+        n0[0] + 2, n0[1] + 1)
+
+
+@pytest.mark.parametrize("game", SIM_GAMES)
+def test_sim_kernel_geometry_on_card(dev, game):
+    """The kernels' own launch geometry equals sim_geometry's."""
+    A = make_env(game).action_dim
+    for B in (1, 17, 129, 256, 512):
+        assert sim.sim_kernel_geometry(B, A) == sim.sim_geometry(B, A)
