@@ -1,4 +1,4 @@
-"""A/B timing of the search kernels' walk of two checkouts on one GPU.
+"""A/B timing of the search kernels of two checkouts on one GPU.
 
 Run it once per checkout, in turns (parent, change, change, parent), on
 one card:
@@ -11,15 +11,19 @@ The dense searches: ``connect4`` at its S=200 with B=512 (self-play) and
 B=128 (the gate), and ``gomoku9-dense`` at its S=400 with B=256 and B=128;
 it runs the first S/2 simulations under the exact stub evaluator and
 prints the device time of ``az_descend_leaf`` and ``az_apply`` at slot
-S/2.  The per-simulation engine: ``connect4-resnet`` (S=200) at B=512 and
-B=128, ``tictactoe`` (S=50) at B=256, ``gomoku9`` and ``gomoku15`` (S=400)
-at B=256, with Dirichlet noise and the exact stub; it prints the device
+S/2, then runs the rest and prints that of ``az_move_tail`` (each call on
+its own copy of the board, player and move count, which it steps) and of
+``az_root_init`` on the move's root (idempotent: the same inputs, the
+same writes).  The per-simulation engine: ``connect4-resnet`` (S=200) at
+B=512 and B=128, ``tictactoe`` (S=50) at B=256, ``gomoku9`` and
+``gomoku15`` (S=400) at B=256, with Dirichlet noise and the exact stub;
+it prints the device
 time of ``az_sim_step`` (the flush of slot S/2 - 1 and the walk of S/2)
 and of ``az_sim_flush`` (slot S/2).  Times are CUDA events around calls
 queued behind a sleep kernel, so that they time the card and not the
-host: 200 launches of the dense kernels, 10 of each sim kernel, every one
-on its own copy of the snapshot (a step may not be repeated on its own
-output).
+host: 200 launches of each dense search kernel, 10 of each sim kernel,
+every one on its own copy of the snapshot (a step may not be repeated on
+its own output).
 """
 
 import sys
@@ -145,10 +149,10 @@ def main(root):
             mc = torch.where(live, state.move_count, 0).contiguous()
             tree = fused.Tree(env, B, S, dev)
             obs = env.observation_from_board(board, player).reshape(B, -1)
-            p, v = stub(obs.contiguous())
+            p0, v0 = stub(obs.contiguous())
             noise = fused.dirichlet_noise(1, env.action_dim, B,
                                           cfg.dirichlet_alpha, gen, dev)[0]
-            fused.root_init(env, cfg, tree, p, v, noise, board)
+            fused.root_init(env, cfg, tree, p0, v0, noise, board)
             for slot in range(1, half):
                 fused.descend_leaf(env, cfg, tree, board, player, mc, slot)
                 fused.apply(tree, slot, *stub(tree.obs))
@@ -157,8 +161,22 @@ def main(root):
             fused.descend_leaf(env, cfg, tree, board, player, mc, half)
             p, v = stub(tree.obs)
             a_ms = device_ms(lambda: fused.apply(tree, half, p, v), 200)
+            fused.apply(tree, half, p, v)
+            for slot in range(half + 1, S):
+                fused.descend_leaf(env, cfg, tree, board, player, mc, slot)
+                fused.apply(tree, slot, *stub(tree.obs))
+            rec = {k: torch.empty((B, env.action_dim) if k == "policy"
+                                  else (B,), dtype=dt, device=dev)
+                   for k, dt in fused._REC_TYPES.items()}
+            u = torch.rand((B,), generator=gen, device=dev)
+            t_ms = on_copies(lambda bd, pl, m: fused.move_tail(
+                env, cfg, tree, u, bd, pl, m, rec), (board, player, mc), 200)
+            r_ms = device_ms(lambda: fused.root_init(
+                env, cfg, tree, p0, v0, noise, board), 200)
             out[f"{name} B={B}"] = {"az_descend_leaf_us": d_ms and d_ms * 1e3,
-                                    "az_apply_us": a_ms and a_ms * 1e3}
+                                    "az_apply_us": a_ms and a_ms * 1e3,
+                                    "az_root_init_us": r_ms and r_ms * 1e3,
+                                    "az_move_tail_us": t_ms and t_ms * 1e3}
     out.update(sim_cells(dev))
     print(f"{fused.__file__}: {out}", flush=True)
 

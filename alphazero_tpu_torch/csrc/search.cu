@@ -28,15 +28,16 @@
 // children's visit and value; the tree (≈ 67 MB at gomoku9, B=256, S=400)
 // does not all stay in the 50 MB L2.
 //
-// Layout of the two per-simulation kernels (az_descend_leaf, az_apply;
-// walk.cuh, shared with sim.cu): a group of G lanes serves one game, G a power of two from the action count
-// (group_size: 8 up to A=8, 16 up to 16, else 32, the most a warp shuffle
-// spans), so a warp holds 32/G games and a CTA of kThreads lanes
-// kThreads/G.  A walk step reads the node's A edges spread over the lanes
-// (coalesced, at most MAX_A/32 a lane), each lane keeps its first maximum
-// of the UCB in ascending action order, and a butterfly of shuffles over
-// the group reduces (u, action) to the larger u, on a tie the lower action:
-// the serial loop's first maximum.  The winner's lane broadcasts its child,
+// Layout of the group kernels (az_root_init, az_descend_leaf, az_apply,
+// az_move_tail; walk.cuh, shared with sim.cu): a group of G lanes serves
+// one game, G a power of two from the action count (group_size: 8 up to
+// A=8, 16 up to 16, else 32, the most a warp shuffle spans), so a warp
+// holds 32/G games and a CTA of kThreads lanes kThreads/G.  A walk step
+// reads the node's A edges spread over the lanes (coalesced, at most
+// MAX_A/32 a lane), each lane keeps its first maximum of the UCB in
+// ascending action order, and a butterfly of shuffles over the group
+// reduces (u, action) to the larger u, on a tie the lower action: the
+// serial loop's first maximum.  The winner's lane broadcasts its child,
 // visit count and expanded bit.  Games of one warp stop at different
 // depths, so the loop runs while any game of the warp walks (__any_sync)
 // and a stopped or idle group (past B on the last CTA) runs on and writes
@@ -47,8 +48,12 @@
 // and the observation (lanes over cells, coalesced) over the group.
 // az_apply writes the new row's edges with lanes over actions and backs up
 // with lanes over plies: the nodes of one path are distinct, so each gets
-// its one addition as in the serial loop.  The other kernels run one thread
-// per game, or per element where their work is elementwise.
+// its one addition as in the serial loop.  az_root_init and az_move_tail,
+// once per move, spread the root's edges, the tree rows, the board's cells
+// and lines and the records over the group the same way; the tail's one
+// serial stage is the inverse-CDF running sum.  The other kernels
+// (az_root_obs, az_move_root_init, az_root_counts) run one thread per
+// game, or per element where their work is elementwise.
 //
 // Games: the move rules (envs/core.py: Env.rules) are a template parameter
 // of the kernels that place a stone or build a legal mask (az_root_init,
@@ -66,6 +71,7 @@
 // shuffle moves a value without changing it.  The tree layout is described
 // in search/fused.py.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -82,39 +88,16 @@
 #define PEND_COLS 7
 
 constexpr int kThreads = 128;  // threads per CTA
+// the most bytes of the (L, K) line table az_move_tail stages in shared
+// memory: 4096 entries, above the ≈ 3,700 of the largest table a game the
+// kernels take can have (256 cells, 32 columns under gravity)
+constexpr size_t kLineBytes = 16384;
 
 namespace {
 
 __device__ __forceinline__ float qprior(float p) {
   return __fmul_rn(floorf(__fadd_rn(__fmul_rn(p, 16384.0f), 0.5f)),
                    1.0f / 16384.0f);
-}
-
-__device__ __forceinline__ void column_heights(const int8_t* bd, int R, int C,
-                                               int* h) {
-  const int RC = R * C;
-  for (int c = 0; c < C; ++c) {
-    int s = 0;
-    for (int r = 0; r < R; ++r) s += bd[r * C + c] + bd[RC + r * C + c];
-    h[c] = s;
-  }
-}
-
-__device__ __forceinline__ bool any_line(const uint8_t* plane,
-                                         const int32_t* lines, int L, int K) {
-  for (int l = 0; l < L; ++l) {
-    bool all = true;
-    for (int k = 0; k < K; ++k) all = all && plane[lines[l * K + k]];
-    if (all) return true;
-  }
-  return false;
-}
-
-template <class T>
-__device__ __forceinline__ bool any_stone(const T* p0, const T* p1, int RC) {
-  for (int c = 0; c < RC; ++c)
-    if (p0[c] || p1[c]) return true;
-  return false;
 }
 
 __global__ void root_obs_kernel(const int8_t* board, const int32_t* player,
@@ -136,40 +119,6 @@ __global__ void root_obs_kernel(const int8_t* board, const int32_t* player,
     o[2 * RC + c] = (float)p;
     ro[2 * RC + c] = (int8_t)p;
   }
-}
-
-template <int RULES>
-__global__ void root_init_kernel(float* visit, float* val, int32_t* child,
-                                 float* prior, const float* probs,
-                                 const float* value, const float* noise,
-                                 const int8_t* board, int B, int N, int A,
-                                 int R, int C, float eps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int RC = R * C;
-  const int8_t* bd = board + (size_t)b * 2 * RC;
-  int h[RULES == RULES_GRAVITY ? MAX_COLS : 1];
-  if (RULES == RULES_GRAVITY) column_heights(bd, R, C, h);
-  const bool any = RULES == RULES_NEIGHBOURHOOD && any_stone(bd, bd + RC, RC);
-  const float one_m = __fsub_rn(1.0f, eps);
-  int32_t* ch = child + (size_t)b * N * A;
-  float* pr = prior + (size_t)b * N * A;
-  for (int a = 0; a < A; ++a) {
-    float p = probs[(size_t)b * A + a];
-    if (noise != nullptr)
-      p = __fadd_rn(__fmul_rn(one_m, p), __fmul_rn(eps, noise[(size_t)a * B + b]));
-    const bool ok = legal<RULES>(bd, bd + RC, h, any, a, R, C);
-    ch[a] = ok ? NO_CHILD : ILLEGAL;
-    pr[a] = ok ? qprior(p) : 0.0f;
-  }
-  float* vs = visit + (size_t)b * N;
-  float* vl = val + (size_t)b * N;
-  for (int n = 0; n < N; ++n) {
-    vs[n] = 0.0f;
-    vl[n] = 0.0f;
-  }
-  vs[0] = 1.5f;
-  vl[0] = -value[b];
 }
 
 // ---- the per-simulation kernels: a group of G lanes per game (walk.cuh)
@@ -361,75 +310,279 @@ __global__ void __launch_bounds__(kThreads) apply_kernel(
   }
 }
 
-template <int RULES>
-__global__ void move_tail_kernel(
+// ---- the two ends of a chunk move: a group of G lanes per game (walk.cuh)
+//
+// Both are latency-bound (a few KB per game): each issues every load that
+// depends on nothing else first, so that they share one trip to memory, and
+// loops of a fixed trip count (kEdges actions a lane) unroll.
+
+// Whether a stone lies in the 3x3 block around cell a of the occupancy
+// plane occ: the nine reads go out together (walk.cuh's legal, which the
+// walk calls on two planes, stops at the first stone it meets: a chain of
+// dependent reads that took most of the root's time at gomoku's A=81).
+__device__ __forceinline__ bool near_stone(const uint8_t* occ, int a, int R,
+                                           int C) {
+  const int r = a / C, k = a - r * C;
+  bool near = false;
+#pragma unroll
+  for (int dr = -1; dr <= 1; ++dr)
+#pragma unroll
+    for (int dk = -1; dk <= 1; ++dk) {
+      const int rr = r + dr, kk = k + dk;
+      const bool in = rr >= 0 && rr < R && kk >= 0 && kk < C;
+      near |= in & (occ[in ? rr * C + kk : a] != 0);
+    }
+  return near;
+}
+
+// The root of a move.  Lanes over actions read the priors and the noise,
+// lanes over cells stage the board's occupancy in shared memory (under
+// gravity lanes over columns count the heights instead) and a ballot over
+// the group says whether a stone is down; lanes over actions then mix in
+// the noise, check legality (the rule of walk.cuh's legal) and write the
+// root's edges (row 0 of child and prior: the rows below stay as they
+// are); lanes over nodes zero the game's visit and val rows, coalesced,
+// the lane of node 0 writing the root's 1.5 and -value.  The noise (A, B)
+// is read strided by B, a lane an action row: at most 83 KB per launch at
+// the presets.
+template <int RULES, int G>
+__global__ void __launch_bounds__(kThreads) root_init_kernel(
+    float* visit, float* val, int32_t* child, float* prior,
+    const float* probs, const float* value, const float* noise,
+    const int8_t* board, int B, int N, int A, int R, int C, float eps) {
+  constexpr int kGames = kThreads / G;
+  constexpr int kEdges = G == 32 ? MAX_A / 32 : 1;  // actions a lane takes
+  constexpr bool kGravity = RULES == RULES_GRAVITY;
+  __shared__ uint8_t s_occ[kGravity ? 1 : kGames][MAX_CELLS];
+  __shared__ int s_h[kGravity ? kGames : 1][MAX_COLS];
+  const int gi = threadIdx.x / G, lane = threadIdx.x % G;
+  const int b = blockIdx.x * kGames + gi;
+  const bool active = b < B;
+  const int bc = active ? b : B - 1;  // an idle group reads in range
+  const int RC = R * C;
+  const float v0 = -value[bc];
+  float pin[kEdges], nz[kEdges];
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    pin[k] = a < A ? probs[(size_t)bc * A + a] : 0.0f;
+    nz[k] = noise != nullptr && a < A ? noise[(size_t)a * B + bc] : 0.0f;
+  }
+  const int8_t* bd = board + (size_t)bc * 2 * RC;
+  uint8_t* occ = s_occ[kGravity ? 0 : gi];
+  int* h = s_h[kGravity ? gi : 0];
+  bool stone = false;
+  if (kGravity) {
+#pragma unroll
+    for (int k = 0; k < kEdges; ++k) {  // C = A columns
+      const int c = lane + k * G;
+      if (c < C) {
+        int s = 0;
+        for (int r = 0; r < R; ++r) s += bd[r * C + c] + bd[RC + r * C + c];
+        h[c] = s;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kEdges; ++k) {  // RC = A cells
+      const int c = lane + k * G;
+      if (c < RC) {
+        const bool v = (bd[c] | bd[RC + c]) != 0;  // both reads go out
+        occ[c] = v;
+        stone = stone || v;
+      }
+    }
+  }
+  const bool any = RULES == RULES_NEIGHBOURHOOD &&
+                   (__ballot_sync(kFull, stone) & group_mask<G>()) != 0;
+  __syncwarp();
+  if (!active) return;
+  const float one_m = __fsub_rn(1.0f, eps);
+  int32_t* ch = child + (size_t)b * N * A;
+  float* pr = prior + (size_t)b * N * A;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    if (a < A) {
+      const float p = noise != nullptr
+          ? __fadd_rn(__fmul_rn(one_m, pin[k]), __fmul_rn(eps, nz[k]))
+          : pin[k];
+      bool ok;
+      if (kGravity) {
+        ok = h[a] < R;
+      } else {
+        ok = !occ[a];
+        if (RULES == RULES_NEIGHBOURHOOD)
+          ok = ok && (any ? near_stone(occ, a, R, C)
+                          : a == (R / 2) * C + C / 2);
+      }
+      ch[a] = ok ? NO_CHILD : ILLEGAL;
+      pr[a] = ok ? qprior(p) : 0.0f;
+    }
+  }
+  float* vs = visit + (size_t)b * N;
+  float* vl = val + (size_t)b * N;
+  for (int n = lane; n < N; n += G) {
+    vs[n] = n == 0 ? 1.5f : 0.0f;
+    vl[n] = n == 0 ? v0 : 0.0f;
+  }
+}
+
+// The end of a move.  Each lane gathers the child of each of its root
+// edges, then that child's visit count, and holds the counts in registers;
+// a shuffle sum over the group gives the total (integer counts far below
+// 2^24: exact in any order), group_first_max the greedy action, a group
+// max the last visited one.  Lanes over actions write the policy and keep
+// it in shared memory, lanes over cells stage the board, lanes over columns
+// count the heights under gravity, and the CTA copies the game's lines
+// into shared memory.  Every lane then adds p_0 ... p_{A-1} in ascending
+// action order from shared memory: the plain version's float32 running
+// sum, whose bits depend on the order (no parallel scan), for the
+// inverse-CDF sample.  Lane 0 plays the move on
+// the staged plane (under gravity only into a column with room: the
+// fallback with no visits may name a full one), lanes over lines check
+// for a win (a ballot over the group), one lane writes each record, and a
+// finished game's board is zeroed with lanes over cells, where an
+// unfinished one gains its stone.
+template <int RULES, int G>
+__global__ void __launch_bounds__(kThreads) move_tail_kernel(
     const float* visit, const float* val, const int32_t* child,
     const float* unif, int8_t* board, int32_t* player, int32_t* mc,
     const int32_t* lines, float* r_policy, int32_t* r_player, int32_t* r_t,
     int32_t* r_action, uint8_t* r_done, int32_t* r_winner, float* r_rootq,
     int B, int N, int A, int R, int C, int L, int K, int max_moves,
     int temperature_moves) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int kGames = kThreads / G;
+  constexpr int kEdges = G == 32 ? MAX_A / 32 : 1;  // edges a lane reads
+  extern __shared__ int32_t s_lines[];  // (L, K): the game's lines
+  // padded rows: the groups of a warp read the board and the policy in
+  // other banks
+  __shared__ uint8_t s_planes[kGames][2 * MAX_CELLS + 4];
+  __shared__ float s_pol[kGames][MAX_A + 1];
+  __shared__ int s_h[RULES == RULES_GRAVITY ? kGames : 1][MAX_COLS];
+  const int gi = threadIdx.x / G, lane = threadIdx.x % G;
+  const int b = blockIdx.x * kGames + gi;
+  const bool active = b < B;
+  const int bc = active ? b : B - 1;  // an idle group reads in range
   const int RC = R * C;
-  const float* vs = visit + (size_t)b * N;
-  const int32_t* ch0 = child + (size_t)b * N * A;
-  // a root count is read again where it is needed, not kept in a
-  // per-thread array of A entries
-  auto count = [&](int a) { return ch0[a] >= 0 ? floorf(vs[ch0[a]]) : 0.0f; };
-  float total = 0.0f, best = -1.0f;  // counts are >= 0
-  int greedy = 0, last_visited = -1;
-  for (int a = 0; a < A; ++a) {
-    const float n = count(a);
-    total = __fadd_rn(total, n);
-    if (n > best) {  // the first maximum
-      best = n;
-      greedy = a;
-    }
-    if (n > 0.0f) last_visited = a;
+  // the CTA's copy of the lines, copied without a trip through registers
+  for (int i = threadIdx.x; i < L * K; i += kThreads)
+    __pipeline_memcpy_async(s_lines + i, lines + i, sizeof(int32_t));
+  __pipeline_commit();
+  const float* vs = visit + (size_t)bc * N;
+  const int32_t* ch0 = child + (size_t)bc * N * A;
+  const int p = player[bc], m = mc[bc];
+  const float u = unif[bc];
+  const float root_v = vs[0], root_l = val[(size_t)bc * N];
+  int32_t cs[kEdges];
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    cs[k] = a < A ? ch0[a] : ILLEGAL;
   }
-  total = fmaxf(total, 1.0f);
-  const float rootq = __fdiv_rn(val[(size_t)b * N], fmaxf(floorf(vs[0]), 1.0f));
-  const float u = unif[b];
-  float acc = 0.0f;
-  int sampled = A;
-  for (int a = 0; a < A; ++a) {
-    const float p = __fdiv_rn(count(a), total);
-    r_policy[(size_t)b * A + a] = p;
-    acc = __fadd_rn(acc, p);
-    if (sampled == A && acc > u) sampled = a;
-  }
-  if (sampled >= A) sampled = last_visited >= 0 ? last_visited : greedy;
-  const int m = mc[b];
-  const int act = m < temperature_moves ? sampled : greedy;
-  // env step for the player to move
-  const int p = player[b];
-  int8_t* bd = board + (size_t)b * 2 * RC;
+  // both planes, so that the reads need not wait for the player
+  int8_t* bd = board + (size_t)bc * 2 * RC;
+#pragma unroll 4
+  for (int c = lane; c < 2 * RC; c += G) s_planes[gi][c] = (uint8_t)bd[c];
+  uint8_t* pl = s_planes[gi] + p * RC;  // the mover's plane
+  int* h = s_h[RULES == RULES_GRAVITY ? gi : 0];
   if (RULES == RULES_GRAVITY) {
-    int h[MAX_COLS];
-    column_heights(bd, R, C, h);
-    if (h[act] < R) bd[p * RC + (R - 1 - h[act]) * C + act] = 1;
-  } else {
-    bd[p * RC + act] = 1;
+#pragma unroll
+    for (int k = 0; k < kEdges; ++k) {  // C = A columns
+      const int c = lane + k * G;
+      if (c < C) {
+        int s = 0;
+        for (int r = 0; r < R; ++r) s += bd[r * C + c] + bd[RC + r * C + c];
+        h[c] = s;
+      }
+    }
   }
-  uint8_t plane[MAX_CELLS];
-  for (int c = 0; c < RC; ++c) plane[c] = (uint8_t)bd[p * RC + c];
-  const bool won = any_line(plane, lines, L, K);
+  float cnt[kEdges];
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k)
+    cnt[k] = cs[k] >= 0 ? floorf(vs[cs[k]]) : 0.0f;
+  // this lane's share of the total, its first maximum in ascending action
+  // order (counts are >= 0) and its last visited action
+  int tot = 0, greedy = INT_MAX, last = -1;
+  float best = -1.0f;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    if (a < A) {
+      tot += (int)cnt[k];
+      if (cnt[k] > best) {
+        best = cnt[k];
+        greedy = a;
+      }
+      if (cnt[k] > 0.0f) last = a;
+    }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    tot += __shfl_xor_sync(kFull, tot, off, G);
+    last = max(last, __shfl_xor_sync(kFull, last, off, G));
+  }
+  group_first_max<G>(best, greedy);
+  const float total = fmaxf((float)tot, 1.0f);
+  float* pol = s_pol[gi];
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    if (a < A) {
+      const float q = __fdiv_rn(cnt[k], total);
+      pol[a] = q;
+      if (active) r_policy[(size_t)b * A + a] = q;
+    }
+  }
+  __syncwarp();
+  int act = greedy;
+  if (m < temperature_moves) {
+    // no early exit, so that the reads of the row run ahead of the sum's
+    // chain
+    float acc = 0.0f;
+    int sampled = A;
+#pragma unroll 8
+    for (int a = 0; a < A; ++a) {
+      acc = __fadd_rn(acc, pol[a]);
+      if (sampled == A && acc > u) sampled = a;
+    }
+    act = sampled < A ? sampled : (last >= 0 ? last : greedy);
+  }
+  // the env step for the player to move: the new stone's cell in its
+  // plane, or -1 when a full column takes none
+  int cell = act;
+  if (RULES == RULES_GRAVITY)
+    cell = h[act] < R ? (R - 1 - h[act]) * C + act : -1;
+  if (lane == 0 && cell >= 0) pl[cell] = 1;
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the stone and the CTA's copy of the lines
+  // the win check: lanes over lines, a ballot over the group (a line's
+  // cells read without a branch, so that the reads overlap)
+  bool line = false;
+  for (int l = lane; l < L; l += G) {
+    const int32_t* cells = s_lines + l * K;
+    bool all = true;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) all &= pl[cells[k]] != 0;
+    line |= all;
+  }
+  const bool won = (__ballot_sync(kFull, line) & group_mask<G>()) != 0;
+  if (!active) return;
   const bool done = won || m + 1 >= max_moves;
-  r_player[b] = p;
-  r_t[b] = m;
-  r_action[b] = act;
-  r_done[b] = done;
-  r_winner[b] = won ? p : -1;
-  r_rootq[b] = rootq;
-  if (done) {
-    for (int c = 0; c < 2 * RC; ++c) bd[c] = 0;
-    player[b] = 0;
-    mc[b] = 0;
-  } else {
-    player[b] = 1 - p;
-    mc[b] = m + 1;
+  switch (lane) {
+    case 0: r_player[b] = p; break;
+    case 1: r_t[b] = m; break;
+    case 2: r_action[b] = act; break;
+    case 3: r_done[b] = done; break;
+    case 4: r_winner[b] = won ? p : -1; break;
+    case 5: r_rootq[b] = __fdiv_rn(root_l, fmaxf(floorf(root_v), 1.0f)); break;
+    case 6: player[b] = done ? 0 : 1 - p; break;
+    case 7: mc[b] = done ? 0 : m + 1; break;
   }
+  if (done)
+    for (int c = lane; c < 2 * RC; c += G) bd[c] = 0;
+  else if (lane == 0 && cell >= 0)
+    bd[p * RC + cell] = 1;
 }
 
 // ---- the move search (pallas_fused._move_kernel): the root comes from the
@@ -509,16 +662,19 @@ int az_root_init(void* visit, void* val, void* child, void* prior,
                  const void* board, int B, int N, int A, int R, int C,
                  int rules, float eps, void* stream) {
   return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
-    root_init_kernel<decltype(rl)::value>
-        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-            (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
-            (const float*)probs, (const float*)value, (const float*)noise,
-            (const int8_t*)board, B, N, A, R, C, eps);
+    with_group(A, [&](auto gl) {
+      root_init_kernel<decltype(rl)::value, decltype(gl)::value>
+          <<<group_blocks(B, A), kThreads, 0, (cudaStream_t)stream>>>(
+              (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
+              (const float*)probs, (const float*)value, (const float*)noise,
+              (const int8_t*)board, B, N, A, R, C, eps);
+    });
   });
 }
 
-// Launch geometry of az_descend_leaf and az_apply for B games of A
-// actions: out = {lanes per game, games per CTA, CTAs, threads per CTA}.
+// Launch geometry of the group kernels (az_root_init, az_descend_leaf,
+// az_apply, az_move_tail) for B games of A actions: out = {lanes per game,
+// games per CTA, CTAs, threads per CTA}.
 int az_search_geometry(int B, int A, int* out) {
   if (A < 1 || A > MAX_A || B < 1) return (int)cudaErrorInvalidValue;
   out[0] = group_size(A);
@@ -570,15 +726,21 @@ int az_move_tail(const void* visit, const void* val, const void* child,
                  int B, int N, int A, int R, int C, int L, int K,
                  int max_moves, int rules, int temperature_moves,
                  void* stream) {
+  const size_t line_bytes = (size_t)L * K * sizeof(int32_t);
+  if (L < 0 || K < 1 || line_bytes > kLineBytes)
+    return (int)cudaErrorInvalidValue;
   return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
-    move_tail_kernel<decltype(rl)::value>
-        <<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-            (const float*)visit, (const float*)val, (const int32_t*)child,
-            (const float*)unif, (int8_t*)board, (int32_t*)player,
-            (int32_t*)mc, (const int32_t*)lines, (float*)r_policy,
-            (int32_t*)r_player, (int32_t*)r_t, (int32_t*)r_action,
-            (uint8_t*)r_done, (int32_t*)r_winner, (float*)r_rootq, B, N, A, R,
-            C, L, K, max_moves, temperature_moves);
+    with_group(A, [&](auto gl) {
+      move_tail_kernel<decltype(rl)::value, decltype(gl)::value>
+          <<<group_blocks(B, A), kThreads, line_bytes,
+             (cudaStream_t)stream>>>(
+              (const float*)visit, (const float*)val, (const int32_t*)child,
+              (const float*)unif, (int8_t*)board, (int32_t*)player,
+              (int32_t*)mc, (const int32_t*)lines, (float*)r_policy,
+              (int32_t*)r_player, (int32_t*)r_t, (int32_t*)r_action,
+              (uint8_t*)r_done, (int32_t*)r_winner, (float*)r_rootq, B, N, A,
+              R, C, L, K, max_moves, temperature_moves);
+    });
   });
 }
 

@@ -1,6 +1,6 @@
-// What the per-simulation walk kernels of search.cu (az_descend_leaf,
-// az_apply) and sim.cu (az_sim_step, az_sim_flush) share: the games' move
-// rules, and the layout of a group of G lanes per game.
+// What the group kernels of search.cu (az_root_init, az_descend_leaf,
+// az_apply, az_move_tail) and sim.cu (az_sim_step, az_sim_flush) share:
+// the games' move rules, and the layout of a group of G lanes per game.
 //
 // A group of G lanes serves one game, G a power of two from the action
 // count (group_size: 8 up to A=8, 16 up to 16, else 32, the most a warp

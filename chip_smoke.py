@@ -21,9 +21,14 @@ Phases (any failure exits non-zero before the final line):
      after, checks on the games it produced, env-steps/s over >= 3 chunks;
      and the device time of every kernel over one profiled chunk;
   5. each search kernel against its plain version on a snapshot of a
-     main-path move, with times, and the launch geometry of the descent and
-     the apply (lanes per game, games per CTA, CTAs) at self-play's batch
-     and the gate's, as the kernels report it;
+     main-path move, with times, and the launch geometry of the group
+     kernels (az_root_init, the descent, the apply, az_move_tail: lanes per
+     game, games per CTA, CTAs) at self-play's batch and the gate's, as the
+     kernels report it; the device time of az_root_init and az_move_tail at
+     self-play's batch (``device_ms``; each tail on its own copy of the
+     board); both kernels bit for bit on the case trees of the card-only
+     tests (``root_trees``, ``tail_trees``) at connect4 and tictactoe,
+     B=512;
   6. the move search (the gate's search, kernel 2) on the card against its
      plain version, bit for bit, under the exact stub evaluator at B=128,
      S=200 with Dirichlet noise fed to both and live, won and drawn games
@@ -87,11 +92,13 @@ Phases (any failure exits non-zero before the final line):
      env-steps/s of its chunks, and checks on every move its chunks played
      (legal, the first in the centre, a winner exactly where a line was
      completed); each search kernel against its plain version on that
-     path's snapshots (B=256 and the gate's B=128) with times, bounds and
-     the descent's and apply's launch geometry; one chunk and one gate move
+     path's snapshots (B=256 and the gate's B=128) with times, bounds, the
+     group kernels' launch geometry, the root's and the tail's device time
+     and their case trees at gomoku9 B=256; one chunk and one gate move
      profiled; the phase's seconds;
 then the main-path summaries, one JSON line of all eleven kernels (each
-with the games it was held at, the descent's and apply's geometry, and
+with the games it was held at, the group kernels' geometry, the root's
+and the tail's ``device_ms``, and
 the gomoku9-dense path's launches, times and bounds under ``by_path``), the
 card line, and the device JSON.
 """
@@ -99,12 +106,14 @@ card line, and the device JSON.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -483,10 +492,64 @@ def forward_by_batch(env, model, params, packed, batches, sweep, gen, dev):
     return by_batch
 
 
-def chunk_kernels_phase(env, mcfg, tr, gen, dev):
+def root_tail_cases(games, B, dev):
+    """az_root_init and az_move_tail, one launch each, bit for bit against
+    their plain versions at B games of each of ``games`` on the case trees
+    of the card-only tests (tests/test_torch_cuda.py: root_trees with and
+    without noise, tail_trees), each case checked for what it holds."""
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.search import fused
+    # by its path: a "tests" package installed elsewhere would shadow the
+    # repository's tests/ directory
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", Path(__file__).resolve().parent / "tests"
+        / "test_torch_cuda.py")
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+    for game in games:
+        env = make_env(game)
+        bad = []
+        cfg, tree, probs, value, noise, board = t.root_trees(env, B, 31, dev)
+        for noise_m in (noise, None):
+            tk, tp = tree.clone(), tree.clone()
+            fused.root_init(env, cfg, tk, probs, value, noise_m, board)
+            fused.root_init_reference(env, cfg, tp, probs, value, noise_m,
+                                      board)
+            bad += [f"az_root_init {f}" for f in ("visit", "val", "child",
+                                                  "prior")
+                    if not torch.equal(getattr(tk, f), getattr(tp, f))]
+        try:
+            t.check_root_cases(env, tp, tree, value)
+        except AssertionError as e:
+            bad.append(f"root case {e}")
+        cfg, tree, u, board, player, mc = t.tail_trees(env, B, 32, dev)
+        got, want = [(board.clone(), player.clone(), mc.clone(),
+                      t.tail_records(B, env.action_dim, dev))
+                     for _ in range(2)]
+        fused.move_tail(env, cfg, tree, u, *got)
+        fused.move_tail_reference(env, cfg, tree, u, *want)
+        bad += [f"az_move_tail {n}" for n, x, y in zip(
+            ("board", "player", "mc"), got, want) if not torch.equal(x, y)]
+        bad += [f"az_move_tail rec.{n}" for n in want[3]
+                if not torch.equal(got[3][n], want[3][n])]
+        try:
+            t.check_tail_cases(env, board, *want)
+        except AssertionError as e:
+            bad.append(f"tail case {e}")
+        log(f"[root/tail cases] {game} B={B}: az_root_init (with noise and "
+            f"without) and az_move_tail on root_trees / tail_trees: "
+            f"{'bitwise equal, every case holds' if not bad else bad}")
+        if bad:
+            fail(f"az_root_init / az_move_tail at {game} B={B}: {bad}")
+
+
+def chunk_kernels_phase(env, mcfg, tr, gen, dev, case_games):
     """Each search kernel of the chunk against its plain version on a
     snapshot of the trainer's self-play state (a main-path move of the
-    trainer's game), with times and bounds: ``{kernel: summary}``."""
+    trainer's game), with times and bounds, the device time of
+    az_root_init and az_move_tail, the group kernels' launch geometry, and
+    the root and tail on the case trees of ``case_games`` (at the chunk's
+    batch): ``{kernel: summary}``."""
     from alphazero_tpu_torch.search import fused
     summary = {}
     S = mcfg.num_simulations
@@ -516,6 +579,17 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
     b_ms, b_by = bound(nbytes(board, player) + B * F * RC * 5)
     summary["az_root_obs"] = dict(**ms, bound_ms=b_ms,
                                   bound_by=b_by)
+    # the launch geometry of the group kernels (root init, descent, apply,
+    # tail) at the chunk's batch and the gate's, as the kernels' library
+    # reports it
+    geometry = {str(Bx): fused.search_kernel_geometry(Bx, A)
+                for Bx in (B, tr.cfg.train.gate_games // 2)}
+    for Bx, g in geometry.items():
+        log(f"  az_root_init / az_descend_leaf / az_apply / az_move_tail "
+            f"geometry, {env.name} A={A} B={Bx}: {g['lanes_per_game']} lanes "
+            f"per game, {g['games_per_cta']} games per CTA, {g['ctas']} CTAs "
+            f"of {g['threads_per_cta']} threads")
+    root_tail_cases(case_games, B, dev)
     obs0 = fused.root_obs(env, board, player, rec_obs)
     probs0, value0 = fused.dense_forward(obs0, packed)
     state = {"tree": tree, "probs": probs0, "value": value0, "noise": noise_m,
@@ -532,23 +606,18 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
                   for f in tree_fields])
     b_ms, b_by = bound(nbytes(probs0, value0, noise_m, board)
                        + 2 * B * N * 4 + B * A * 8, f32_ops=4.0 * B * A)
-    summary["az_root_init"] = dict(**ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+    # idempotent: every call writes the same root on the same tree
+    r_dev = device_ms([("az_root_init", lambda: fused.root_init(
+        env, mcfg, tree, probs0, value0, noise_m, board), 200)])
+    summary["az_root_init"] = dict(**ms, bound_ms=b_ms, bound_by=b_by,
+                                   device_ms=r_dev["az_root_init"],
+                                   geometry=geometry)
     fused.root_init(env, mcfg, tree, probs0, value0, noise_m, board)
     half = S // 2
     for slot in range(1, half):
         fused.descend_leaf(env, mcfg, tree, board, player, mc, slot)
         p, v = fused.dense_forward(tree.obs, packed)
         fused.apply(tree, slot, p, v)
-    # the launch geometry of the descent and the apply at the chunk's batch
-    # and the gate's, as the kernels' library reports it
-    geometry = {str(Bx): fused.search_kernel_geometry(Bx, A)
-                for Bx in (B, tr.cfg.train.gate_games // 2)}
-    for Bx, g in geometry.items():
-        log(f"  az_descend_leaf / az_apply geometry, {env.name} A={A} "
-            f"B={Bx}: {g['lanes_per_game']} lanes per game, "
-            f"{g['games_per_cta']} games per CTA, {g['ctas']} CTAs of "
-            f"{g['threads_per_cta']} threads")
     # descend at slot S/2
     dstate = {"tree": tree, "board": board, "player": player, "mc": mc}
     ms = compare("az_descend_leaf",
@@ -620,8 +689,19 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev):
     t_bytes = (B * A * 4 * 2 + B * 8 * 2 + nbytes(u) + 2 * nbytes(board)
                + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1))
     b_ms, b_by = bound(t_bytes, f32_ops=4.0 * B * A)
-    summary["az_move_tail"] = dict(**ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+    # the tail steps the board: every timed call on its own copy
+    pool = iter([(board.clone(), player.clone(), mc.clone())
+                 for _ in range(1 + 4 * 200)])
+    t_dev = device_ms([("az_move_tail", lambda: fused.move_tail(
+        env, mcfg, tree, u, *next(pool), rec), 200)])
+    summary["az_move_tail"] = dict(**ms, bound_ms=b_ms, bound_by=b_by,
+                                   device_ms=t_dev["az_move_tail"],
+                                   geometry=geometry)
+    us = {k: "not measured" if t is None else f"{t * 1e3:.2f} us"
+          for k, t in (("root", r_dev["az_root_init"]),
+                       ("tail", t_dev["az_move_tail"]))}
+    log(f"  device time at B={B} (device_ms): az_root_init {us['root']}, "
+        f"az_move_tail {us['tail']} per launch")
     torch.cuda.synchronize()
     return summary
 
@@ -1896,7 +1976,7 @@ def dense_games_phase(gen, dev):
     # snapshot (B=256) and the gate's batch (B=128), real weights
     log("[gomoku9-dense] each kernel against its plain version: a self-play "
         f"snapshot (B={B}) and a gate search (B={Bg})")
-    kern = chunk_kernels_phase(env, mcfg, tr, gen, dev)
+    kern = chunk_kernels_phase(env, mcfg, tr, gen, dev, ("gomoku9",))
     ms_move, err_move = move_kernels_phase(env, mcfg, tr.model,
                                            tr.params_best, margs, noise, dev)
     kern.update(ms_move)
@@ -2098,7 +2178,8 @@ def main():
                            med * 1e3)
 
     # ---- 5. search kernels vs plain versions on a main-path move
-    summary.update(chunk_kernels_phase(env, mcfg, tr, gen, dev))
+    summary.update(chunk_kernels_phase(env, mcfg, tr, gen, dev,
+                                       ("connect4", "tictactoe")))
 
     # ---- 6. the move search (kernel 2) vs its plain version, bitwise
     Bg = cfg.train.gate_games // 2           # each agent's half of the gate
@@ -2291,7 +2372,7 @@ def main():
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "games": ["connect4", "tictactoe", "gomoku9"],
-            **({"geometry": s["geometry"]} if "geometry" in s else {}),
+            **{f: s[f] for f in ("geometry", "device_ms") if f in s},
             "by_path": {"gomoku9-dense": {
                 "launches": total11[k.name],
                 "launches_collect": split11["collect"][k.name],
@@ -2301,7 +2382,7 @@ def main():
                 "call_ms": kern11[k.name]["ms"],
                 **{f: kern11[k.name][f] for f in (
                     "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                    "geometry") if f in kern11[k.name]}}}})
+                    "geometry", "device_ms") if f in kern11[k.name]}}}})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({

@@ -797,3 +797,278 @@ def test_sim_kernel_geometry_on_card(dev, game):
     A = make_env(game).action_dim
     for B in (1, 17, 129, 256, 512):
         assert sim.sim_kernel_geometry(B, A) == sim.sim_geometry(B, A)
+
+
+# ---- one launch of az_root_init and az_move_tail on trees of every case
+
+ROOT_CASES = 5
+TAIL_CASES = 8
+TAIL_TEMPERATURE = 4                 # temperature_moves of tail_trees
+ROOT_TAIL_BATCHES = [(game, B) for game in WALK_GAMES
+                     for B in (1, 17, 129, 256)] + [("connect4", 512)]
+
+
+def near_full(env, dev):
+    """A drawn full board with three places cleared: under gravity the top
+    of columns 1 and 4 and the top two cells of column 5, else cells 0,
+    RC // 2 and RC - 1.  Returns ``(board, the legal actions)``."""
+    board = drawn_board(env).to(dev)
+    if env.rules == fused.RULES_GRAVITY:
+        for r, c in ((0, 1), (0, 4), (0, 5), (1, 5)):
+            board[:, r, c] = 0
+        return board, (1, 4, 5)
+    RC = env.rows * env.cols
+    cells = (0, RC // 2, RC - 1)
+    board.reshape(2, RC)[:, list(cells)] = 0
+    return board, cells
+
+
+def root_legal(env, case):
+    """The legal root actions ``(A,)`` bool of case ``case`` (1-4) of
+    :func:`root_trees`."""
+    A, C = env.action_dim, env.cols
+    legal = torch.zeros(A, dtype=torch.bool)
+    gomoku = env.rules == fused.RULES_NEIGHBOURHOOD
+    if case == 1:
+        if gomoku:
+            legal[(env.rows // 2) * C + C // 2] = True
+        else:
+            legal[:] = True
+    elif case == 2:
+        legal[list(near_full(env, "cpu")[1])] = True
+    elif case == 3:
+        if gomoku:
+            legal[[1, C, C + 1]] = True
+        else:
+            legal[:] = True
+            legal[0] = env.rules == fused.RULES_GRAVITY
+    return legal
+
+
+def root_trees(env, B, seed, dev):
+    """Operands of one ``az_root_init`` launch, S = 60, on a tree left dirty
+    by earlier moves (every row of it random).  Game b holds case b % 5:
+
+    0. a position of random play (finished games among them);
+    1. an empty board (gomoku: the centre alone is legal);
+    2. a full board but three cells or columns (:func:`near_full`), under
+       gravity full and nearly full columns side by side;
+    3. one stone, the second player's, in the corner cell (under gravity
+       at the foot of column 0): gomoku's three neighbours are legal;
+    4. a full drawn board: nothing is legal.
+
+    Returns ``(cfg, tree, probs, value, noise (A, B), board)``."""
+    S = 60
+    cfg = MCTSConfig(num_simulations=S, dirichlet_alpha=0.3)
+    A, N = env.action_dim, S + 1
+    board = _sim_positions(env, B, seed, dev)[0].clone()
+    case = torch.arange(B, device=dev) % ROOT_CASES
+    board[case == 1] = 0
+    board[case == 2] = near_full(env, dev)[0]
+    one = case == 3
+    board[one] = 0
+    board[one, 1, env.rows - 1 if env.rules == fused.RULES_GRAVITY else 0,
+          0] = 1
+    board[case == 4] = drawn_board(env).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tree = fused.Tree(env, B, S, dev)
+    tree.visit.copy_(torch.rand((B, N), generator=g, device=dev) * 9)
+    tree.val.copy_(torch.rand((B, N), generator=g, device=dev) * 2 - 1)
+    tree.child.copy_(torch.randint(-2, N, (B, N, A), generator=g, device=dev,
+                                   dtype=torch.int32))
+    tree.prior.copy_(torch.rand((B, N, A), generator=g, device=dev))
+    probs = torch.rand((B, A), generator=g, device=dev)
+    probs = probs / probs.sum(-1, keepdim=True)
+    value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+    noise = fused.dirichlet_noise(1, A, B, 0.3, g, dev)[0].contiguous()
+    return cfg, tree, probs, value, noise, board.contiguous()
+
+
+def check_root_cases(env, tree, before, value):
+    """What the tree init must leave in each case of :func:`root_trees`
+    (``before``: the tree before it)."""
+    B = tree.B
+    case = torch.arange(B, device=tree.visit.device) % ROOT_CASES
+    ch0, pr0 = tree.child[:, 0], tree.prior[:, 0]
+    legal = ch0 != fused.ILLEGAL
+    assert (ch0[legal] == fused.NO_CHILD).all()
+    assert (pr0[~legal] == 0).all() and (pr0[legal] >= 0).all()
+    assert torch.equal(tree.child[:, 1:], before.child[:, 1:])
+    assert torch.equal(tree.prior[:, 1:], before.prior[:, 1:])
+    assert (tree.visit[:, 0] == 1.5).all() and (tree.visit[:, 1:] == 0).all()
+    assert torch.equal(tree.val[:, 0], -value)
+    assert (tree.val[:, 1:] == 0).all()
+    for c in range(1, ROOT_CASES):
+        want = root_legal(env, c).to(legal.device)
+        assert (legal[case == c] == want).all(), c
+
+
+def tail_records(B, A, dev):
+    """A move's records, filled with a value no record takes (7, True)."""
+    return {name: torch.full((B, A) if name == "policy" else (B,), 7,
+                             dtype=dt, device=dev)
+            for name, dt in fused._REC_TYPES.items()}
+
+
+def tail_trees(env, B, seed, dev):
+    """Operands of one ``az_move_tail`` launch, S = A + 8 (a node for
+    every root edge), temperature_moves 4.  Game b holds case b % 8, the
+    root's edges visited as given (edge a to node a + 1, every other edge
+    open and unvisited):
+
+    0. counts 1, 3, 3 on actions 0-2, played greedily: the tie goes to
+       action 1;
+    1. no visited edge, sampled: the greedy fallback, action 0, on a full
+       column under gravity (else a cell of the other player);
+    2. counts 4, 7, 1 and u = 1 - 2⁻²⁴, sampled: the float32 running sum
+       ends at u, not above it, so the last visited action, 2;
+    3. and 4. counts 1 and 5 on actions 1 and 3, u = 0, move count 3 and 4
+       (either side of temperature_moves): sampled 1, greedy 3;
+    5. a win in one (:func:`win_in_one`), its edge alone visited: the
+       winner set, the game reset;
+    6. a drawn board but cell 0 (the first player's), its edge alone
+       visited, move count max_moves - 1: a draw, the game reset;
+    7. random play and 7 simulations of the plain search under the exact
+       stub, u uniform.
+
+    Returns ``(cfg, tree, u, board, player, mc)``."""
+    A, R, C = env.action_dim, env.rows, env.cols
+    S = A + 8
+    T = TAIL_TEMPERATURE
+    cfg = MCTSConfig(num_simulations=S, use_dirichlet=False,
+                     temperature_moves=T)
+    board, player, mc, done = _sim_positions(env, B, seed, dev)
+    board = torch.where(done[:, None, None, None], 0, board)
+    player = torch.where(done, 0, player)
+    mc = torch.where(done, 0, mc)
+    stub = exact_stub_evaluator(env)
+    tree = fused.Tree(env, B, S, dev)
+    obs = env.observation_from_board(board, player).reshape(B, -1)
+    fused.root_init_reference(env, cfg, tree, *stub(obs), None, board)
+    for s in range(1, 8):
+        fused.descend_leaf_reference(env, cfg, tree, board, player, mc, s)
+        fused.apply_reference(tree, s, *stub(tree.obs))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((B,), generator=g, device=dev)
+    case = torch.arange(B, device=dev) % TAIL_CASES
+    synth = case < 7
+    board[synth], player[synth], mc[synth] = 0, 0, 0
+    tree.visit[synth], tree.val[synth] = 0.0, 0.0
+    tree.child[synth, 0] = fused.NO_CHILD
+    tree.val[synth, 0] = case[synth].float() * 0.375 - 1.0
+
+    def visits(c, counts):
+        """Root of case c's games: edge a to node a + 1 with counts[a]
+        visits (expanded where a is even)."""
+        games = case == c
+        for a, n in counts.items():
+            tree.child[games, 0, a] = a + 1
+            tree.visit[games, a + 1] = n + 0.5 * (a % 2 == 0)
+        tree.visit[games, 0] = sum(counts.values()) + 1.5
+
+    visits(0, {0: 1, 1: 3, 2: 3})
+    mc[case == 0] = T
+    full = case == 1
+    if env.rules == fused.RULES_GRAVITY:
+        for r in range(R):
+            board[full, r % 2, r, 0] = 1
+    else:
+        board[full, 1, 0, 0] = 1
+    tree.child[full, 0, 0] = fused.ILLEGAL
+    visits(1, {})
+    visits(2, {0: 4, 1: 7, 2: 1})
+    u[case == 2] = 1.0 - 2.0 ** -24
+    for c in (3, 4):
+        visits(c, {1: 1, 3: 5})
+        u[case == c] = 0.0
+        mc[case == c] = T - 1 + (c - 3)
+    win = case == 5
+    cells, win_action = win_in_one(env)
+    for cell in cells:
+        board[win, 0, cell // C, cell % C] = 1
+    mc[win] = len(cells)
+    visits(5, {win_action: 5})
+    draw = case == 6
+    board[draw] = drawn_board(env).to(dev)
+    board[draw, :, 0, 0] = 0
+    mc[draw] = env.max_moves - 1
+    visits(6, {0: 5})
+    return cfg, tree, u, board.contiguous(), player.contiguous(), \
+        mc.contiguous()
+
+
+def check_tail_cases(env, board0, board, player, mc, rec):
+    """What the tail must have played in each case of :func:`tail_trees`
+    (``board0``: the boards before it)."""
+    B = board.shape[0]
+    case = torch.arange(B, device=board.device) % TAIL_CASES
+    act, done, winner = rec["action"], rec["done"], rec["winner"]
+    want = {0: 0 + 1, 1: 0, 2: 2, 3: 1, 4: 3, 5: win_in_one(env)[1], 6: 0}
+    for c, a in want.items():
+        assert (act[case == c] == a).all(), c
+    full = case == 1
+    if env.rules == fused.RULES_GRAVITY:      # no stone in a full column
+        assert torch.equal(board[full], board0[full])
+    assert not done[full].any() and (player[full] == 1).all()
+    assert (mc[full] == 1).all()
+    for c, w in ((5, 0), (6, -1)):
+        g = case == c
+        assert done[g].all() and (winner[g] == w).all(), c
+        assert (board[g] == 0).all() and (player[g] == 0).all()
+        assert (mc[g] == 0).all()
+    policy = rec["policy"]
+    visited = policy.sum(-1) > 0
+    assert ((policy.sum(-1)[visited] - 1).abs() <= 1e-6).all()
+    assert not visited[full].any()
+
+
+def tail_outputs_equal(a, b):
+    """``(board, player, mc, rec)`` of kernel and plain version, bit for
+    bit."""
+    for name, x, y in zip(("board", "player", "mc"), a[:3], b[:3]):
+        assert torch.equal(x, y), name
+    for name in a[3]:
+        assert torch.equal(a[3][name], b[3][name]), f"rec.{name}"
+
+
+@pytest.mark.parametrize("game,B", ROOT_TAIL_BATCHES)
+def test_root_init_one_launch_bitwise(dev, game, B):
+    """az_root_init against its plain version bit for bit on the whole tree
+    (rows below the root untouched), with noise and without, on the boards
+    of :func:`root_trees` (empty, near full, one stone, full), at batches
+    that fill no CTA, one and part of the next, and the chunk's; its launch
+    geometry is the descent's."""
+    env = make_env(game)
+    A = env.action_dim
+    cfg, tree, probs, value, noise, board = root_trees(env, B, 31, dev)
+    n0 = fused.K_ROOT_INIT.launches
+    for noise_m in (noise, None):
+        tk, tp = tree.clone(), tree.clone()
+        fused.root_init(env, cfg, tk, probs, value, noise_m, board)
+        fused.root_init_reference(env, cfg, tp, probs, value, noise_m, board)
+        for f in ("visit", "val", "child", "prior"):
+            assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+        check_root_cases(env, tp, tree, value)
+    assert fused.K_ROOT_INIT.launches == n0 + 2
+    assert fused.search_kernel_geometry(B, A) == fused.search_geometry(B, A)
+
+
+@pytest.mark.parametrize("game,B", ROOT_TAIL_BATCHES)
+def test_move_tail_one_launch_bitwise(dev, game, B):
+    """az_move_tail against its plain version bit for bit on the board,
+    player, move count and all seven records, on the trees of
+    :func:`tail_trees` (a tie, no visits, u past the running sum, either
+    side of temperature_moves, a win, a draw, a full column), at the
+    batches of the root test; its launch geometry is the descent's."""
+    env = make_env(game)
+    A = env.action_dim
+    cfg, tree, u, board, player, mc = tail_trees(env, B, 32, dev)
+    n0 = fused.K_TAIL.launches
+    got, want = [(board.clone(), player.clone(), mc.clone(),
+                  tail_records(B, A, dev)) for _ in range(2)]
+    fused.move_tail(env, cfg, tree, u, *got)
+    fused.move_tail_reference(env, cfg, tree, u, *want)
+    tail_outputs_equal(got, want)
+    check_tail_cases(env, board, *want)
+    assert fused.K_TAIL.launches == n0 + 1
+    assert fused.search_kernel_geometry(B, A) == fused.search_geometry(B, A)
