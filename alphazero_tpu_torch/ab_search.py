@@ -11,17 +11,22 @@ The dense searches: ``connect4`` at its S=200 with B=512 (self-play) and
 B=128 (the gate), and ``gomoku9-dense`` at its S=400 with B=256 and B=128;
 it runs the first S/2 simulations under the exact stub evaluator and
 prints the device time of ``az_descend_leaf`` and ``az_apply`` at slot
-S/2, then runs the rest and prints that of ``az_move_tail`` (each call on
-its own copy of the board, player and move count, which it steps) and of
-``az_root_init`` on the move's root (idempotent: the same inputs, the
-same writes).  The per-simulation engine: ``connect4-resnet`` (S=200) at
-B=512 and B=128, ``tictactoe`` (S=50) at B=256, ``gomoku9`` and
-``gomoku15`` (S=400) at B=256, with Dirichlet noise and the exact stub;
-it prints the device
-time of ``az_sim_step`` (the flush of slot S/2 - 1 and the walk of S/2)
-and of ``az_sim_flush`` (slot S/2).  Times are CUDA events around calls
-queued behind a sleep kernel, so that they time the card and not the
-host: 200 launches of each dense search kernel, 10 of each sim kernel,
+S/2, then runs the rest and prints that of ``az_root_counts`` on the
+finished tree (it only reads the tree), of ``az_move_tail`` (each call on
+its own copy of the board, player and move count, which it steps), of
+``az_root_init`` on the move's root and then of ``az_move_root_init``
+from the stub's prior with ``NEG`` on about 20% of actions and on the
+finished games, the stub's value and ``live = ~done`` (both idempotent:
+the same inputs, the same writes).  It also prints ``launch_floor_us``,
+the device time of ``torch.cuda._sleep(0)`` (a one-thread kernel that
+spins for no cycles) in the same harness.  The per-simulation engine:
+``connect4-resnet`` (S=200) at B=512 and B=128, ``tictactoe`` (S=50) at
+B=256, ``gomoku9`` and ``gomoku15`` (S=400) at B=256, with Dirichlet
+noise and the exact stub; it prints the device time of ``az_sim_step``
+(the flush of slot S/2 - 1 and the walk of S/2) and of ``az_sim_flush``
+(slot S/2).  Times are CUDA events around calls queued behind a sleep
+kernel, so that they time the card and not the host: 200 launches of
+each dense search kernel (and of the sleep), 10 of each sim kernel,
 every one on its own copy of the snapshot (a step may not be repeated on
 its own output).
 """
@@ -165,6 +170,7 @@ def main(root):
             for slot in range(half + 1, S):
                 fused.descend_leaf(env, cfg, tree, board, player, mc, slot)
                 fused.apply(tree, slot, *stub(tree.obs))
+            c_ms = device_ms(lambda: fused.root_counts(tree), 200)
             rec = {k: torch.empty((B, env.action_dim) if k == "policy"
                                   else (B,), dtype=dt, device=dev)
                    for k, dt in fused._REC_TYPES.items()}
@@ -173,10 +179,19 @@ def main(root):
                 env, cfg, tree, u, bd, pl, m, rec), (board, player, mc), 200)
             r_ms = device_ms(lambda: fused.root_init(
                 env, cfg, tree, p0, v0, noise, board), 200)
+            cut = torch.rand(p0.shape, generator=gen, device=dev) < 0.2
+            rp = torch.where(cut | ~live[:, None], fused.NEG, p0)
+            m_ms = device_ms(lambda: fused.move_root_init(tree, rp, v0, live),
+                             200)
             out[f"{name} B={B}"] = {"az_descend_leaf_us": d_ms and d_ms * 1e3,
                                     "az_apply_us": a_ms and a_ms * 1e3,
                                     "az_root_init_us": r_ms and r_ms * 1e3,
-                                    "az_move_tail_us": t_ms and t_ms * 1e3}
+                                    "az_move_tail_us": t_ms and t_ms * 1e3,
+                                    "az_root_counts_us": c_ms and c_ms * 1e3,
+                                    "az_move_root_init_us":
+                                        m_ms and m_ms * 1e3}
+    f_ms = device_ms(lambda: torch.cuda._sleep(0), 200)
+    out["launch_floor_us"] = f_ms and f_ms * 1e3
     out.update(sim_cells(dev))
     print(f"{fused.__file__}: {out}", flush=True)
 

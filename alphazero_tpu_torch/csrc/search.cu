@@ -29,15 +29,15 @@
 // does not all stay in the 50 MB L2.
 //
 // Layout of the group kernels (az_root_init, az_descend_leaf, az_apply,
-// az_move_tail; walk.cuh, shared with sim.cu): a group of G lanes serves
-// one game, G a power of two from the action count (group_size: 8 up to
-// A=8, 16 up to 16, else 32, the most a warp shuffle spans), so a warp
-// holds 32/G games and a CTA of kThreads lanes kThreads/G.  A walk step
-// reads the node's A edges spread over the lanes (coalesced, at most
-// MAX_A/32 a lane), each lane keeps its first maximum of the UCB in
-// ascending action order, and a butterfly of shuffles over the group
-// reduces (u, action) to the larger u, on a tie the lower action: the
-// serial loop's first maximum.  The winner's lane broadcasts its child,
+// az_move_tail, az_root_counts; walk.cuh, shared with sim.cu): a group of G
+// lanes serves one game, G a power of two from the action count
+// (group_size: 8 up to A=8, 16 up to 16, else 32, the most a warp shuffle
+// spans), so a warp holds 32/G games and a CTA of kThreads lanes
+// kThreads/G.  A walk step reads the node's A edges spread over the lanes
+// (coalesced, at most MAX_A/32 a lane), each lane keeps its first maximum
+// of the UCB in ascending action order, and a butterfly of shuffles over
+// the group reduces (u, action) to the larger u, on a tie the lower action:
+// the serial loop's first maximum.  The winner's lane broadcasts its child,
 // visit count and expanded bit.  Games of one warp stop at different
 // depths, so the loop runs while any game of the warp walks (__any_sync)
 // and a stopped or idle group (past B on the last CTA) runs on and writes
@@ -51,9 +51,12 @@
 // its one addition as in the serial loop.  az_root_init and az_move_tail,
 // once per move, spread the root's edges, the tree rows, the board's cells
 // and lines and the records over the group the same way; the tail's one
-// serial stage is the inverse-CDF running sum.  The other kernels
-// (az_root_obs, az_move_root_init, az_root_counts) run one thread per
-// game, or per element where their work is elementwise.
+// serial stage is the inverse-CDF running sum.  The tail and az_root_counts
+// share the root's counting stage (root_edges, group_root_counts: lanes
+// over the root's edges, one round of dependent visit loads, counts in
+// registers, a shuffle sum).  az_move_root_init is elementwise: 16-byte
+// stores of the tree rows and lanes over the root's edges (its note below).
+// az_root_obs runs a thread per element.
 //
 // Games: the move rules (envs/core.py: Env.rules) are a template parameter
 // of the kernels that place a stone or build a legal mask (az_root_init,
@@ -428,21 +431,57 @@ __global__ void __launch_bounds__(kThreads) root_init_kernel(
   }
 }
 
-// The end of a move.  Each lane gathers the child of each of its root
-// edges, then that child's visit count, and holds the counts in registers;
-// a shuffle sum over the group gives the total (integer counts far below
-// 2^24: exact in any order), group_first_max the greedy action, a group
-// max the last visited one.  Lanes over actions write the policy and keep
-// it in shared memory, lanes over cells stage the board, lanes over columns
-// count the heights under gravity, and the CTA copies the game's lines
-// into shared memory.  Every lane then adds p_0 ... p_{A-1} in ascending
-// action order from shared memory: the plain version's float32 running
-// sum, whose bits depend on the order (no parallel scan), for the
-// inverse-CDF sample.  Lane 0 plays the move on
-// the staged plane (under gravity only into a column with room: the
-// fallback with no visits may name a full one), lanes over lines check
-// for a win (a ballot over the group), one lane writes each record, and a
-// finished game's board is zeroed with lanes over cells, where an
+// The root's counting stage of the tail and of az_root_counts.  Lane
+// `lane` of a game's group takes the root edges a = lane + k·G (k < E):
+// root_edges loads them (coalesced, independent: they go out together, an
+// edge past A is ILLEGAL), group_root_counts then loads their children's
+// visits in one round, keeps floor(visit) of each edge with a child (0
+// otherwise) in registers and sums the counts over the group by shuffles
+// (integer counts far below 2^24: exact in any order).  It returns the
+// policy's divisor, max(Σ counts, 1) as float32.
+template <int G, int E>
+__device__ __forceinline__ void root_edges(const int32_t* ch0, int A,
+                                           int lane, int32_t (&cs)[E]) {
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int a = lane + k * G;
+    cs[k] = a < A ? ch0[a] : ILLEGAL;
+  }
+}
+
+template <int G, int E>
+__device__ __forceinline__ float group_root_counts(const float* vs,
+                                                   const int32_t (&cs)[E],
+                                                   float (&cnt)[E]) {
+#pragma unroll
+  for (int k = 0; k < E; ++k) cnt[k] = cs[k] >= 0 ? floorf(vs[cs[k]]) : 0.0f;
+  int tot = 0;
+#pragma unroll
+  for (int k = 0; k < E; ++k) tot += (int)cnt[k];
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    tot += __shfl_xor_sync(kFull, tot, off, G);
+  return fmaxf((float)tot, 1.0f);
+}
+
+// root Q: the root's value over its visits, floor(visit) at least 1
+__device__ __forceinline__ float root_q_of(float root_l, float root_v) {
+  return __fdiv_rn(root_l, fmaxf(floorf(root_v), 1.0f));
+}
+
+// The end of a move.  The counting stage above (the root's children's
+// counts in registers, their total by a shuffle sum), then group_first_max
+// gives the greedy action and a group max the last visited one.  Lanes
+// over actions write the policy and keep it in shared memory, lanes over
+// cells stage the board, lanes over columns count the heights under
+// gravity, and the CTA copies the game's lines into shared memory.  Every
+// lane then adds p_0 ... p_{A-1} in ascending action order from shared
+// memory: the plain version's float32 running sum, whose bits depend on
+// the order (no parallel scan), for the inverse-CDF sample.  Lane 0 plays
+// the move on the staged plane (under gravity only into a column with
+// room: the fallback with no visits may name a full one), lanes over lines
+// check for a win (a ballot over the group), one lane writes each record,
+// and a finished game's board is zeroed with lanes over cells, where an
 // unfinished one gains its stone.
 template <int RULES, int G>
 __global__ void __launch_bounds__(kThreads) move_tail_kernel(
@@ -475,11 +514,7 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
   const float u = unif[bc];
   const float root_v = vs[0], root_l = val[(size_t)bc * N];
   int32_t cs[kEdges];
-#pragma unroll
-  for (int k = 0; k < kEdges; ++k) {
-    const int a = lane + k * G;
-    cs[k] = a < A ? ch0[a] : ILLEGAL;
-  }
+  root_edges<G>(ch0, A, lane, cs);
   // both planes, so that the reads need not wait for the player
   int8_t* bd = board + (size_t)bc * 2 * RC;
 #pragma unroll 4
@@ -498,18 +533,15 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
     }
   }
   float cnt[kEdges];
-#pragma unroll
-  for (int k = 0; k < kEdges; ++k)
-    cnt[k] = cs[k] >= 0 ? floorf(vs[cs[k]]) : 0.0f;
-  // this lane's share of the total, its first maximum in ascending action
-  // order (counts are >= 0) and its last visited action
-  int tot = 0, greedy = INT_MAX, last = -1;
+  const float total = group_root_counts<G>(vs, cs, cnt);
+  // this lane's first maximum in ascending action order (counts are >= 0)
+  // and its last visited action
+  int greedy = INT_MAX, last = -1;
   float best = -1.0f;
 #pragma unroll
   for (int k = 0; k < kEdges; ++k) {
     const int a = lane + k * G;
     if (a < A) {
-      tot += (int)cnt[k];
       if (cnt[k] > best) {
         best = cnt[k];
         greedy = a;
@@ -518,12 +550,9 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
     }
   }
 #pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    tot += __shfl_xor_sync(kFull, tot, off, G);
+  for (int off = G / 2; off > 0; off >>= 1)
     last = max(last, __shfl_xor_sync(kFull, last, off, G));
-  }
   group_first_max<G>(best, greedy);
-  const float total = fmaxf((float)tot, 1.0f);
   float* pol = s_pol[gi];
 #pragma unroll
   for (int k = 0; k < kEdges; ++k) {
@@ -575,7 +604,7 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
     case 2: r_action[b] = act; break;
     case 3: r_done[b] = done; break;
     case 4: r_winner[b] = won ? p : -1; break;
-    case 5: r_rootq[b] = __fdiv_rn(root_l, fmaxf(floorf(root_v), 1.0f)); break;
+    case 5: r_rootq[b] = root_q_of(root_l, root_v); break;
     case 6: player[b] = done ? 0 : 1 - p; break;
     case 7: mc[b] = done ? 0 : m + 1; break;
   }
@@ -588,49 +617,103 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
 // ---- the move search (pallas_fused._move_kernel): the root comes from the
 // host, then the sims above, then the root counts.
 
-// Thread i < B·N writes tree row element (b, n) = (i / N, i % N) of
-// visit/val, coalesced; thread i < B·A also writes root edge (i / A, i % A).
-__global__ void move_root_init_kernel(float* visit, float* val,
-                                      int32_t* child, float* prior,
-                                      const float* root_prior,
-                                      const float* value,
-                                      const uint8_t* live, int B, int N,
-                                      int A) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B * N) {
-    const int b = i / N, n = i % N;
-    const bool lv = live[b] != 0;
-    visit[i] = n == 0 ? (lv ? 1.5f : 1.0f) : 0.0f;
-    val[i] = (n == 0 && lv) ? -value[b] : 0.0f;
-  }
-  if (i < B * A) {
-    const int b = i / A, a = i % A;
-    const float rp = root_prior[i];
-    const bool ok = rp > -1e29f;
-    child[(size_t)b * N * A + a] = ok ? NO_CHILD : ILLEGAL;
-    prior[(size_t)b * N * A + a] = ok ? qprior(rp) : 0.0f;
+// The tree init from the host's root.  Its bound is some 0.5 MB of stores
+// (≈ 0.16 µs): what costs is the launch and the work per element, so each
+// thread writes four elements of both tree rows, visit and val (B·N
+// contiguous floats, zero but at each row's node 0), as one 16-byte store
+// each.  The game and node of the first element come from a float
+// reciprocal of N corrected to the exact quotient (no divide), those of
+// the next three from a running count; live and value are read only for an
+// element at a row's node 0.  The threads past the rows write the roots'
+// edges (row 0 of child and prior, the rows below stay as they are), a
+// span of 2^shift ≥ A lanes per game (shift and mask, no divide),
+// coalesced within a game.  The grid is at most one wave on the card (a
+// grid-stride loop beyond that).
+__global__ void __launch_bounds__(kThreads) move_root_init_kernel(
+    float* visit, float* val, int32_t* child, float* prior,
+    const float* root_prior, const float* value, const uint8_t* live, int B,
+    int N, int A, int shift, float inv_n) {
+  const int n = B * N;              // elements of a tree row array
+  const int n4 = (n + 3) / 4;       // their 16-byte groups
+  const int work = n4 + (B << shift);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < work;
+       i += gridDim.x * kThreads) {
+    if (i < n4) {
+      const int e = 4 * i;
+      int b = (int)((float)e * inv_n);  // floor(e / N), give or take one
+      while (b * N > e) --b;
+      while ((b + 1) * N <= e) ++b;
+      int node = e - b * N;
+      float vi[4], vl[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool root = node == 0 && e + j < n;
+        // both loads go out together: one trip to memory
+        const bool lv = root && live[b] != 0;
+        const float v = root ? value[b] : 0.0f;
+        vi[j] = root ? (lv ? 1.5f : 1.0f) : 0.0f;
+        vl[j] = lv ? -v : 0.0f;
+        if (++node == N) {
+          node = 0;
+          ++b;
+        }
+      }
+      if (e + 4 <= n) {
+        reinterpret_cast<float4*>(visit)[i] =
+            make_float4(vi[0], vi[1], vi[2], vi[3]);
+        reinterpret_cast<float4*>(val)[i] =
+            make_float4(vl[0], vl[1], vl[2], vl[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e + j < n) {
+            visit[e + j] = vi[j];
+            val[e + j] = vl[j];
+          }
+      }
+    } else {
+      const int u = i - n4;
+      const int b = u >> shift, a = u & ((1 << shift) - 1);
+      if (a < A) {
+        const float rp = root_prior[(size_t)b * A + a];
+        const bool ok = rp > -1e29f;
+        child[(size_t)b * N * A + a] = ok ? NO_CHILD : ILLEGAL;
+        prior[(size_t)b * N * A + a] = ok ? qprior(rp) : 0.0f;
+      }
+    }
   }
 }
 
-__global__ void root_counts_kernel(const float* visit, const float* val,
-                                   const int32_t* child, int32_t* counts,
-                                   float* policy, float* root_q, int B, int N,
-                                   int A) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* vs = visit + (size_t)b * N;
-  const int32_t* ch0 = child + (size_t)b * N * A;
-  int32_t* cnt = counts + (size_t)b * A;  // read back by this thread
-  int tot = 0;
-  for (int a = 0; a < A; ++a) {
-    const int c = ch0[a];
-    cnt[a] = c >= 0 ? (int)floorf(vs[c]) : 0;
-    tot += cnt[a];
+// The move search's root counts, policy and root Q: the tail's counting
+// stage (root_edges, group_root_counts) in the group layout, the root's
+// visit and value loaded with the edges; lanes over actions write the
+// counts and the policy count / max(Σ, 1), coalesced, lane 0 the root Q.
+template <int G>
+__global__ void __launch_bounds__(kThreads) root_counts_kernel(
+    const float* visit, const float* val, const int32_t* child,
+    int32_t* counts, float* policy, float* root_q, int B, int N, int A) {
+  constexpr int kGames = kThreads / G;
+  constexpr int kEdges = G == 32 ? MAX_A / 32 : 1;  // edges a lane reads
+  const int gi = threadIdx.x / G, lane = threadIdx.x % G;
+  const int b = blockIdx.x * kGames + gi;
+  const bool active = b < B;
+  const int bc = active ? b : B - 1;  // an idle group reads in range
+  const float* vs = visit + (size_t)bc * N;
+  const float root_v = vs[0], root_l = val[(size_t)bc * N];
+  int32_t cs[kEdges];
+  root_edges<G>(child + (size_t)bc * N * A, A, lane, cs);
+  float cnt[kEdges];
+  const float total = group_root_counts<G>(vs, cs, cnt);
+  if (!active) return;
+#pragma unroll
+  for (int k = 0; k < kEdges; ++k) {
+    const int a = lane + k * G;
+    if (a < A) {
+      counts[(size_t)b * A + a] = (int32_t)cnt[k];
+      policy[(size_t)b * A + a] = __fdiv_rn(cnt[k], total);
+    }
   }
-  const float total = (float)max(tot, 1);
-  for (int a = 0; a < A; ++a)
-    policy[(size_t)b * A + a] = __fdiv_rn((float)cnt[a], total);
-  root_q[b] = __fdiv_rn(val[(size_t)b * N], fmaxf(floorf(vs[0]), 1.0f));
+  if (lane == 0) root_q[b] = root_q_of(root_l, root_v);
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -673,8 +756,8 @@ int az_root_init(void* visit, void* val, void* child, void* prior,
 }
 
 // Launch geometry of the group kernels (az_root_init, az_descend_leaf,
-// az_apply, az_move_tail) for B games of A actions: out = {lanes per game,
-// games per CTA, CTAs, threads per CTA}.
+// az_apply, az_move_tail, az_root_counts) for B games of A actions: out =
+// {lanes per game, games per CTA, CTAs, threads per CTA}.
 int az_search_geometry(int B, int A, int* out) {
   if (A < 1 || A > MAX_A || B < 1) return (int)cudaErrorInvalidValue;
   out[0] = group_size(A);
@@ -747,21 +830,47 @@ int az_move_tail(const void* visit, const void* val, const void* child,
 int az_move_root_init(void* visit, void* val, void* child, void* prior,
                       const void* root_prior, const void* value,
                       const void* live, int B, int N, int A, void* stream) {
-  const int n = N > A ? B * N : B * A;
-  move_root_init_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  if (B < 1 || N < 1 || A < 1 || A > MAX_A || (long long)B * N > (1 << 28) ||
+      (((uintptr_t)visit | (uintptr_t)val) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  int shift = 0;
+  while ((1 << shift) < A) ++shift;
+  // one wave: the CTAs the card holds at once (read once per device)
+  static int wave_dev = -1, wave = 0;
+  int d = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&d);
+  if (err == cudaSuccess && d != wave_dev) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, d);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, move_root_init_kernel, kThreads, 0);
+    if (err == cudaSuccess && sms * per_sm < 1) err = cudaErrorInvalidValue;
+    if (err == cudaSuccess) {
+      wave = sms * per_sm;
+      wave_dev = d;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int work = (B * N + 3) / 4 + (B << shift);
+  const int blocks = blocks_for(work);
+  move_root_init_kernel<<<blocks < wave ? blocks : wave, kThreads, 0,
+                          (cudaStream_t)stream>>>(
       (float*)visit, (float*)val, (int32_t*)child, (float*)prior,
       (const float*)root_prior, (const float*)value, (const uint8_t*)live, B,
-      N, A);
+      N, A, shift, 1.0f / (float)N);
   return (int)cudaGetLastError();
 }
 
 int az_root_counts(const void* visit, const void* val, const void* child,
                    void* counts, void* policy, void* root_q, int B, int N,
                    int A, void* stream) {
-  if (A > MAX_A) return (int)cudaErrorInvalidValue;
-  root_counts_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)visit, (const float*)val, (const int32_t*)child,
-      (int32_t*)counts, (float*)policy, (float*)root_q, B, N, A);
+  if (B < 1 || A < 1 || A > MAX_A) return (int)cudaErrorInvalidValue;
+  with_group(A, [&](auto gl) {
+    root_counts_kernel<decltype(gl)::value>
+        <<<group_blocks(B, A), kThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)visit, (const float*)val, (const int32_t*)child,
+            (int32_t*)counts, (float*)policy, (float*)root_q, B, N, A);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -30,17 +30,18 @@ Each stage is a hand-written CUDA kernel (``csrc/search.cu``,
 module.  A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  :func:`run_selfplay_chunk`
 and :func:`run_mcts_fused` sequence the stages from the host.  The two
-kernels of every simulation, the descent and the apply, and the two at the
-ends of a chunk move, the tree init and the tail, give each game a group of
-G lanes (8, 16 or 32 from the action count): the walk reads a node's A
-edges across the group and reduces them to the first maximum, the leaf
-finish and the expansion spread their cells, lines, actions and plies over
-it, the tree init its edges and tree rows, the tail its counts (summed and
-reduced over the group), records and board; the tail's inverse-CDF sum
-alone stays serial, its bits depend on the order (:func:`search_geometry`,
-the ``search.cu`` header).  The other search kernels (the root observation
-and the move search's root init and counts) run a thread per game, or per
-element where their work is elementwise.
+kernels of every simulation, the descent and the apply, the two at the
+ends of a chunk move, the tree init and the tail, and the move search's
+root counts give each game a group of G lanes (8, 16 or 32 from the action
+count): the walk reads a node's A edges across the group and reduces them
+to the first maximum, the leaf finish and the expansion spread their
+cells, lines, actions and plies over it, the tree init its edges and tree
+rows, the tail and the root counts the root's counts (summed over the
+group), the tail its records and board; the tail's inverse-CDF sum alone
+stays serial, its bits depend on the order (:func:`search_geometry`, the
+``search.cu`` header).  The move search's tree init is elementwise
+(16-byte stores of the tree rows, lanes over the root's edges), the root
+observation a thread per element.
 
 The tree lives in device memory with games in rows: ``visit``/``val``
 ``(B, N)`` float32 with N = S+1, edges ``child (B, N, A)`` int32 (node id,
@@ -687,7 +688,8 @@ def root_counts_reference(tree: Tree):
 
 def search_group(A: int) -> int:
     """Lanes per game of the group kernels (``az_root_init``,
-    ``az_descend_leaf``, ``az_apply``, ``az_move_tail``) for A actions
+    ``az_descend_leaf``, ``az_apply``, ``az_move_tail``,
+    ``az_root_counts``) for A actions
     (``csrc/search.cu:group_size``): the smallest of 8, 16 and 32 that holds
     A, and 32 above that (a warp; each lane then reads up to 4 edges)."""
     if not 1 <= A <= MAX_ACTIONS:

@@ -22,20 +22,23 @@ Phases (any failure exits non-zero before the final line):
      and the device time of every kernel over one profiled chunk;
   5. each search kernel against its plain version on a snapshot of a
      main-path move, with times, and the launch geometry of the group
-     kernels (az_root_init, the descent, the apply, az_move_tail: lanes per
-     game, games per CTA, CTAs) at self-play's batch and the gate's, as the
-     kernels report it; the device time of az_root_init and az_move_tail at
-     self-play's batch (``device_ms``; each tail on its own copy of the
-     board); both kernels bit for bit on the case trees of the card-only
+     kernels (az_root_init, the descent, the apply, az_move_tail,
+     az_root_counts: lanes per game, games per CTA, CTAs) at self-play's
+     batch and the gate's, as the kernels report it; the device time of
+     az_root_init and az_move_tail at self-play's batch (``device_ms``;
+     each tail on its own copy of the board); both kernels bit for bit on the case trees of the card-only
      tests (``root_trees``, ``tail_trees``) at connect4 and tictactoe,
      B=512;
   6. the move search (the gate's search, kernel 2) on the card against its
      plain version, bit for bit, under the exact stub evaluator at B=128,
      S=200 with Dirichlet noise fed to both and live, won and drawn games
      mixed; then az_move_root_init and az_root_counts each against its
-     plain version on a main-path snapshot (real weights), with times, and
-     the forward kernel against its plain version at the gate's B=128 on
-     every simulation of that search;
+     plain version on a main-path snapshot (real weights), with times,
+     their device times at B=128 (``device_ms``) beside the launch floor
+     (``torch.cuda._sleep(0)``) and their bounds, both bit for bit on the
+     case trees of the card-only tests (``count_trees``, ``dirty_trees`` at
+     N = 401 and 201) at connect4 B=128, and the forward kernel against its
+     plain version at the gate's B=128 on every simulation of that search;
   7. the main path's whole outer iteration,
      ``Trainer(preset("connect4")).iterate(vanilla_eval=False)``: launch
      counts set to 0 before and read after, and measured per phase
@@ -94,11 +97,14 @@ Phases (any failure exits non-zero before the final line):
      completed); each search kernel against its plain version on that
      path's snapshots (B=256 and the gate's B=128) with times, bounds, the
      group kernels' launch geometry, the root's and the tail's device time
-     and their case trees at gomoku9 B=256; one chunk and one gate move
-     profiled; the phase's seconds;
+     and their case trees at gomoku9 B=256, the move search's root init and
+     counts (device times, case trees) at gomoku9 B=128; one chunk and one
+     gate move profiled (az_root_counts must be in the gate move's path);
+     the phase's seconds;
 then the main-path summaries, one JSON line of all eleven kernels (each
-with the games it was held at, the group kernels' geometry, the root's
-and the tail's ``device_ms``, and
+with the games it was held at, the group kernels' geometry, the
+``device_ms`` of the root, the tail and the move search's two ends (with
+the launch floor), and
 the gomoku9-dense path's launches, times and bounds under ``by_path``), the
 card line, and the device JSON.
 """
@@ -492,6 +498,60 @@ def forward_by_batch(env, model, params, packed, batches, sweep, gen, dev):
     return by_batch
 
 
+def card_tests():
+    """The card-only test module, tests/test_torch_cuda.py, loaded by its
+    path: a "tests" package installed elsewhere would shadow the
+    repository's tests/ directory."""
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", Path(__file__).resolve().parent / "tests"
+        / "test_torch_cuda.py")
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+    return t
+
+
+def count_init_cases(games, B, dev):
+    """az_root_counts and az_move_root_init, one launch each, bit for bit
+    against their plain versions at B games of each of ``games`` on the
+    case trees of the card-only tests (tests/test_torch_cuda.py:
+    count_trees; dirty_trees at N = 401 and 201), each case checked for
+    what it holds."""
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.search import fused
+    t = card_tests()
+    for game in games:
+        env = make_env(game)
+        bad = []
+        tree = t.count_trees(env, B, 41, dev)
+        got = fused.root_counts(tree)
+        want = fused.root_counts_reference(tree)
+        bad += [f"az_root_counts {n}" for n, x, y in zip(
+            ("counts", "policy", "root_q"), got, want)
+            if not torch.equal(x, y)]
+        try:
+            t.check_count_cases(env, *want)
+        except AssertionError as e:
+            bad.append(f"count case {e}")
+        for S in (400, 200):
+            tree, prior, value, live = t.dirty_trees(env, B, S, 42, dev)
+            tk, tp = tree.clone(), tree.clone()
+            fused.move_root_init(tk, prior, value, live)
+            fused.move_root_init_reference(tp, prior, value, live)
+            bad += [f"az_move_root_init N={S + 1} {f}" for f in (
+                "visit", "val", "child", "prior")
+                if not torch.equal(getattr(tk, f), getattr(tp, f))]
+            try:
+                t.check_dirty_init(tp, tree, prior, value, live)
+            except AssertionError as e:
+                bad.append(f"dirty tree N={S + 1} {e}")
+        log(f"[counts/init cases] {game} B={B}: az_root_counts on "
+            f"count_trees, az_move_root_init on dirty_trees (N = 401, 201): "
+            f"{'bitwise equal, every case holds' if not bad else bad}")
+        if bad:
+            fail(f"az_root_counts / az_move_root_init at {game} B={B}: "
+                 f"{bad}")
+
+
 def root_tail_cases(games, B, dev):
     """az_root_init and az_move_tail, one launch each, bit for bit against
     their plain versions at B games of each of ``games`` on the case trees
@@ -499,13 +559,7 @@ def root_tail_cases(games, B, dev):
     without noise, tail_trees), each case checked for what it holds."""
     from alphazero_tpu_torch.envs import make_env
     from alphazero_tpu_torch.search import fused
-    # by its path: a "tests" package installed elsewhere would shadow the
-    # repository's tests/ directory
-    spec = importlib.util.spec_from_file_location(
-        "card_tests", Path(__file__).resolve().parent / "tests"
-        / "test_torch_cuda.py")
-    t = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(t)
+    t = card_tests()
     for game in games:
         env = make_env(game)
         bad = []
@@ -580,13 +634,14 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev, case_games):
     summary["az_root_obs"] = dict(**ms, bound_ms=b_ms,
                                   bound_by=b_by)
     # the launch geometry of the group kernels (root init, descent, apply,
-    # tail) at the chunk's batch and the gate's, as the kernels' library
-    # reports it
+    # tail, the move search's root counts) at the chunk's batch and the
+    # gate's, as the kernels' library reports it
     geometry = {str(Bx): fused.search_kernel_geometry(Bx, A)
                 for Bx in (B, tr.cfg.train.gate_games // 2)}
     for Bx, g in geometry.items():
-        log(f"  az_root_init / az_descend_leaf / az_apply / az_move_tail "
-            f"geometry, {env.name} A={A} B={Bx}: {g['lanes_per_game']} lanes "
+        log(f"  az_root_init / az_descend_leaf / az_apply / az_move_tail / "
+            f"az_root_counts geometry, {env.name} A={A} B={Bx}: "
+            f"{g['lanes_per_game']} lanes "
             f"per game, {g['games_per_cta']} games per CTA, {g['ctas']} CTAs "
             f"of {g['threads_per_cta']} threads")
     root_tail_cases(case_games, B, dev)
@@ -706,12 +761,15 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev, case_games):
     return summary
 
 
-def move_kernels_phase(env, mcfg, model, params, margs, noise, dev):
+def move_kernels_phase(env, mcfg, model, params, margs, noise, dev,
+                       case_games):
     """az_move_root_init and az_root_counts against their plain versions on
     a move search of the roots ``margs`` (boards, players, move counts,
-    dones) with ``model``'s weights, and the forward kernel against its
-    plain version on every simulation of that search:
-    ``({kernel: summary}, the forward's max abs err)``."""
+    dones) with ``model``'s weights, their device times (``device_ms``) at
+    that batch beside the launch floor (``torch.cuda._sleep(0)``) and
+    their bounds, both on the case trees of ``case_games`` at that batch,
+    and the forward kernel against its plain version on every simulation
+    of that search: ``({kernel: summary}, the forward's max abs err)``."""
     from alphazero_tpu_torch.models import make_eval_fn
     from alphazero_tpu_torch.search import fused
     from alphazero_tpu_torch.search.mcts import root_prior
@@ -735,7 +793,15 @@ def move_kernels_phase(env, mcfg, model, params, margs, noise, dev):
                   for f in tree_fields])
     b_ms, b_by = bound(nbytes(rp, v0, live6) + 2 * Bg * N * 4 + Bg * A * 8,
                        f32_ops=4.0 * Bg * A)
-    summary["az_move_root_init"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    # idempotent: every call writes the same root on the same tree
+    i_dev = device_ms([("az_move_root_init", lambda: fused.move_root_init(
+        tree6, rp, v0, live6), 200), ("launch floor", lambda:
+                                       torch.cuda._sleep(0), 200)])
+    summary["az_move_root_init"] = dict(
+        **ms, bound_ms=b_ms, bound_by=b_by,
+        device_ms=i_dev["az_move_root_init"],
+        launch_floor_ms=i_dev["launch floor"])
+    count_init_cases(case_games, Bg, dev)
     # the search with the real forward kernel, held against its plain
     # version at the gate's shape on every simulation
     fwd_err = []
@@ -766,9 +832,21 @@ def move_kernels_phase(env, mcfg, model, params, margs, noise, dev):
                  [out(lambda s, r, i=i: r[i], name) for i, name in
                   enumerate(("counts", "policy", "root_q"))])
     n_kids = int((tree6.child[:, 0] >= 0).sum())
-    b_ms, b_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
-                       + Bg * 4, f32_ops=float(Bg * A + Bg))
-    summary["az_root_counts"] = dict(**ms, bound_ms=b_ms, bound_by=b_by)
+    b_c, c_by = bound(Bg * A * 4 + n_kids * 4 + Bg * 8 + Bg * A * 8
+                      + Bg * 4, f32_ops=float(Bg * A + Bg))
+    # it only reads the tree
+    c_dev = device_ms([("az_root_counts", lambda: fused.root_counts(tree6),
+                        200)])["az_root_counts"]
+    summary["az_root_counts"] = dict(
+        **ms, bound_ms=b_c, bound_by=c_by, device_ms=c_dev,
+        geometry={str(Bg): fused.search_kernel_geometry(Bg, A)})
+    us = {k: "not measured" if t is None else f"{t * 1e3:.2f} us"
+          for k, t in (("init", i_dev["az_move_root_init"]),
+                       ("counts", c_dev), ("floor", i_dev["launch floor"]))}
+    log(f"  device time at B={Bg} (device_ms): az_move_root_init "
+        f"{us['init']} (bound {b_ms * 1e3:.3f} us), az_root_counts "
+        f"{us['counts']} (bound {b_c * 1e3:.4f} us) per launch; launch "
+        f"floor (torch.cuda._sleep(0)) {us['floor']}")
 
     return summary, err_b128
 
@@ -1978,7 +2056,8 @@ def dense_games_phase(gen, dev):
         f"snapshot (B={B}) and a gate search (B={Bg})")
     kern = chunk_kernels_phase(env, mcfg, tr, gen, dev, ("gomoku9",))
     ms_move, err_move = move_kernels_phase(env, mcfg, tr.model,
-                                           tr.params_best, margs, noise, dev)
+                                           tr.params_best, margs, noise, dev,
+                                           ("gomoku9",))
     kern.update(ms_move)
     dense11["max_abs_err"] = max(dense11["max_abs_err"], err_move)
     kern["az_dense_forward"] = dense11
@@ -2006,6 +2085,13 @@ def dense_games_phase(gen, dev):
     gate_wall = (time.perf_counter() - t0) * 1e3
     gate_us = print_profile(f"gomoku9-dense, one gate move (2 x B={Bg})",
                             device_profile(gate_move), gate_wall)
+    if gate_us:
+        if "az_root_counts" not in gate_us:
+            fail("the profiled gomoku9-dense gate move ran no az_root_counts")
+        log(f"[gomoku9-dense] az_root_counts in the gate move's path: "
+            f"{gate_us['az_root_counts'] * 1e3:.2f} us per launch, "
+            f"az_move_root_init "
+            f"{gate_us.get('az_move_root_init', float('nan')) * 1e3:.2f} us")
     seconds = time.perf_counter() - t_phase
     log(f"[gomoku9-dense] phase 11 took {seconds:.1f} s")
     out_.update(env_steps_per_s=rate,
@@ -2226,7 +2312,7 @@ def main():
     # az_move_root_init and az_root_counts on a main-path snapshot: the
     # gate's half batch, the trainer's weights, the real forward
     ms6, err_b128 = move_kernels_phase(env, mcfg, tr.model, tr.params_best,
-                                       margs, noise6, dev)
+                                       margs, noise6, dev, ("connect4",))
     summary.update(ms6)
     fwd = summary["az_dense_forward"]
     fwd["max_abs_err_by_batch"] = {str(B): fwd["max_abs_err"],
@@ -2372,7 +2458,8 @@ def main():
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
             "games": ["connect4", "tictactoe", "gomoku9"],
-            **{f: s[f] for f in ("geometry", "device_ms") if f in s},
+            **{f: s[f] for f in ("geometry", "device_ms", "launch_floor_ms")
+               if f in s},
             "by_path": {"gomoku9-dense": {
                 "launches": total11[k.name],
                 "launches_collect": split11["collect"][k.name],
@@ -2382,7 +2469,8 @@ def main():
                 "call_ms": kern11[k.name]["ms"],
                 **{f: kern11[k.name][f] for f in (
                     "max_abs_err", "plain_ms", "bound_ms", "bound_by",
-                    "geometry", "device_ms") if f in kern11[k.name]}}}})
+                    "geometry", "device_ms", "launch_floor_ms")
+                    if f in kern11[k.name]}}}})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({

@@ -8,6 +8,7 @@ a GPU run them without the repository's conftest (which needs JAX):
 The kernels build with nvcc into build/alphazero_tpu_torch/ at first use.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -604,7 +605,9 @@ def test_descend_and_apply_one_launch_bitwise(dev, game, B):
 
 @pytest.mark.parametrize("game", WALK_GAMES)
 def test_search_kernel_geometry_on_card(dev, game):
-    """The kernels' own launch geometry equals search_geometry's."""
+    """The kernels' own launch geometry equals search_geometry's (the
+    group kernels' one layout: az_root_init, az_descend_leaf, az_apply,
+    az_move_tail and az_root_counts)."""
     A = make_env(game).action_dim
     for B in (1, 17, 129, 256, 512):
         assert fused.search_kernel_geometry(B, A) == fused.search_geometry(
@@ -1072,3 +1075,192 @@ def test_move_tail_one_launch_bitwise(dev, game, B):
     check_tail_cases(env, board, *want)
     assert fused.K_TAIL.launches == n0 + 1
     assert fused.search_kernel_geometry(B, A) == fused.search_geometry(B, A)
+
+
+# ---- one launch of az_root_counts and az_move_root_init on case trees
+
+COUNT_CASES = 7
+COUNT_SIMS = 7                       # simulations of case 6's plain search
+COUNT_BATCHES = [(game, B) for game in WALK_GAMES for B in (1, 17, 128, 129)]
+
+
+def count_case(A, c):
+    """Case c (0-5) of :func:`count_trees` at A actions: ``(visits,
+    illegal)``, the visit value of each visited edge's child (edge a to
+    node a + 1, visits + 0.5 where the child is expanded) and the ILLEGAL
+    edges; every other edge is open and unvisited."""
+    if c == 0:
+        return {}, set(range(A))
+    if c == 1:
+        return {a: float(a % 5 + 1) for a in range(2, A, 3)}, set(
+            range(0, A, 3))
+    if c == 2:
+        return {0: 3.5, 1: 1.5, 2: 2.0}, set()
+    if c == 3:
+        return {1: 4.0, A - 1: 4.5}, set()
+    if c == 4:
+        return {A // 2: A + 7.5}, set()
+    return {a: a + 1 + 0.5 * (a % 2 == 0)
+            for a in range(A - 1, -1, -(A // 8 + 1))}, set()
+
+
+def count_trees(env, B, seed, dev):
+    """A tree for one ``az_root_counts`` launch, S = A + 8 (a node for
+    every root edge).  Game b holds case b % 7, cases 0-5 on a tree left
+    dirty (every row random but the root's edges and their children's
+    visits, :func:`count_case`):
+
+    0. a finished game, its root unexpanded: no legal edge, root visit 1,
+       value 0 (counts 0, policy 0, root Q 0/1);
+    1. illegal edges, legal unvisited edges and visited ones, in turn;
+    2. visits carrying the 0.5 expanded bit, which the floor drops;
+    3. a tie of counts on actions 1 and A - 1;
+    4. all S - 1 visits on one edge;
+    5. visited edges spread over every action block of a lane (at A=81
+       actions 3 to 80, past the first 32);
+    6. random play and 7 simulations of the plain search under the exact
+       stub.
+
+    Cases 1-5 have root visit Σ + 1.5 and value c·0.375 - 1."""
+    A = env.action_dim
+    S = A + 8
+    N = S + 1
+    cfg = MCTSConfig(num_simulations=S, use_dirichlet=False)
+    board, player, mc, done = _sim_positions(env, B, seed, dev)
+    board = torch.where(done[:, None, None, None], 0, board)
+    player = torch.where(done, 0, player)
+    mc = torch.where(done, 0, mc)
+    stub = exact_stub_evaluator(env)
+    tree = fused.Tree(env, B, S, dev)
+    obs = env.observation_from_board(board, player).reshape(B, -1)
+    fused.root_init_reference(env, cfg, tree, *stub(obs), None, board)
+    for s in range(1, COUNT_SIMS + 1):
+        fused.descend_leaf_reference(env, cfg, tree, board, player, mc, s)
+        fused.apply_reference(tree, s, *stub(tree.obs))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    case = torch.arange(B, device=dev) % COUNT_CASES
+    synth = case < 6
+    n = int(synth.sum())
+    tree.visit[synth] = torch.rand((n, N), generator=g, device=dev) * 9
+    tree.val[synth] = torch.rand((n, N), generator=g, device=dev) * 2 - 1
+    tree.child[synth] = torch.randint(-2, N, (n, N, A), generator=g,
+                                      device=dev, dtype=torch.int32)
+    tree.prior[synth] = torch.rand((n, N, A), generator=g, device=dev)
+    for c in range(6):
+        games = case == c
+        visits, illegal = count_case(A, c)
+        tree.child[games, 0] = fused.NO_CHILD
+        for a in illegal:
+            tree.child[games, 0, a] = fused.ILLEGAL
+        for a, v in visits.items():
+            tree.child[games, 0, a] = a + 1
+            tree.visit[games, a + 1] = v
+        total = sum(int(v) for v in visits.values())
+        tree.visit[games, 0] = 1.0 if c == 0 else total + 1.5
+        tree.val[games, 0] = 0.0 if c == 0 else c * 0.375 - 1.0
+    return tree
+
+
+def check_count_cases(env, counts, policy, root_q):
+    """What the root counts must be in each case of :func:`count_trees`."""
+    B, A = counts.shape
+    dev = counts.device
+    case = torch.arange(B, device=dev) % COUNT_CASES
+    for c in range(6):
+        games = case == c
+        visits, _ = count_case(A, c)
+        want = np.zeros(A, dtype=np.int32)
+        for a, v in visits.items():
+            want[a] = int(v)
+        total = max(int(want.sum()), 1)
+        # numpy's float32 division, correctly rounded (CUDA's division by
+        # a scalar multiplies by its reciprocal)
+        pol = want.astype(np.float32) / np.float32(total)
+        q = np.float32(0.0 if c == 0 else c * 0.375 - 1.0) / np.float32(
+            1.0 if c == 0 else total + 1.0)
+        assert (counts[games] == torch.from_numpy(want).to(dev)).all(), c
+        assert (policy[games] == torch.from_numpy(pol).to(dev)).all(), c
+        assert (root_q[games] == float(q)).all(), c
+    assert (counts[case == 4, A // 2] == A + 7).all()
+    assert (policy[case == 4, A // 2] == 1).all()
+    assert (counts[case == 3, 1] == counts[case == 3, A - 1]).all()
+    assert (counts[case == 6].sum(-1) == COUNT_SIMS).all()
+
+
+def dirty_trees(env, B, S, seed, dev):
+    """Operands of one ``az_move_root_init`` launch on a tree left dirty:
+    visit and val 7.0 everywhere, every edge (the root's too) a sentinel
+    (child 12345, prior 3.25) that the rows below the root must keep.  The
+    root prior is ``NEG`` on about 20% of actions and on every finished
+    game (about a quarter), uniform elsewhere; the value is uniform in
+    [-1, 1).  Returns ``(tree, root_prior, value, live)``."""
+    A = env.action_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tree = fused.Tree(env, B, S, dev)
+    tree.visit.fill_(7.0)
+    tree.val.fill_(7.0)
+    tree.child.fill_(12345)
+    tree.prior.fill_(3.25)
+    live = torch.rand((B,), generator=g, device=dev) >= 0.25
+    prior = torch.rand((B, A), generator=g, device=dev)
+    cut = torch.rand((B, A), generator=g, device=dev) < 0.2
+    prior = torch.where(cut | ~live[:, None], fused.NEG, prior)
+    value = torch.rand((B,), generator=g, device=dev) * 2 - 1
+    return tree, prior, value, live
+
+
+def check_dirty_init(tree, before, root_prior, value, live):
+    """What the move search's tree init must leave on a tree of
+    :func:`dirty_trees` (``before``: the tree before it): every visit and
+    val element rewritten, the root's edges from its prior, the rows below
+    untouched."""
+    one = torch.ones_like(value)
+    assert torch.equal(tree.visit[:, 0], torch.where(live, one * 1.5, one))
+    assert (tree.visit[:, 1:] == 0).all()
+    assert torch.equal(tree.val[:, 0],
+                       torch.where(live, -value, torch.zeros_like(value)))
+    assert (tree.val[:, 1:] == 0).all()
+    ok = root_prior > -1e29
+    assert torch.equal(tree.child[:, 0], torch.where(
+        ok, fused.NO_CHILD, fused.ILLEGAL).to(torch.int32))
+    assert torch.equal(tree.prior[:, 0], torch.where(
+        ok, fused.qprior(root_prior), torch.zeros_like(root_prior)))
+    assert torch.equal(tree.child[:, 1:], before.child[:, 1:])
+    assert torch.equal(tree.prior[:, 1:], before.prior[:, 1:])
+
+
+@pytest.mark.parametrize("game,B", COUNT_BATCHES)
+def test_root_counts_one_launch_bitwise(dev, game, B):
+    """az_root_counts against its plain version bit for bit (counts,
+    policy, root Q) on the trees of :func:`count_trees` (a finished root,
+    illegal and unvisited edges, expanded bits, a tie, one edge, edges past
+    the first 32 actions), at batches that fill no CTA, exactly the gate's,
+    and one past it (idle groups on the last CTA)."""
+    env = make_env(game)
+    tree = count_trees(env, B, 41, dev)
+    n0 = fused.K_ROOT_COUNTS.launches
+    got = fused.root_counts(tree)
+    want = fused.root_counts_reference(tree)
+    for name, x, y in zip(("counts", "policy", "root_q"), got, want):
+        assert torch.equal(x, y), name
+    check_count_cases(env, *want)
+    assert fused.K_ROOT_COUNTS.launches == n0 + 1
+
+
+@pytest.mark.parametrize("game,B", COUNT_BATCHES)
+def test_move_root_init_one_launch_bitwise(dev, game, B):
+    """az_move_root_init against its plain version bit for bit on the whole
+    tree of :func:`dirty_trees` (every visit and val element, the root's
+    edges, the rows below kept), at N = 401 and 201 (B·N not a multiple of
+    4 but at B=128) and the batches of the counts test."""
+    env = make_env(game)
+    n0 = fused.K_MOVE_ROOT_INIT.launches
+    for S in (400, 200):
+        tree, prior, value, live = dirty_trees(env, B, S, 42, dev)
+        tk, tp = tree.clone(), tree.clone()
+        fused.move_root_init(tk, prior, value, live)
+        fused.move_root_init_reference(tp, prior, value, live)
+        for f in ("visit", "val", "child", "prior"):
+            assert torch.equal(getattr(tk, f), getattr(tp, f)), (S, f)
+        check_dirty_init(tp, tree, prior, value, live)
+    assert fused.K_MOVE_ROOT_INIT.launches == n0 + 2
