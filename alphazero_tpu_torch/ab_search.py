@@ -14,7 +14,14 @@ prints the device time of ``az_descend_leaf`` and ``az_apply`` at slot
 S/2, then runs the rest and prints that of ``az_root_counts`` on the
 finished tree (it only reads the tree), of ``az_move_tail`` (each call on
 its own copy of the board, player and move count, which it steps), of
-``az_root_init`` on the move's root and then of ``az_move_root_init``
+``az_root_obs`` and of a move's end: the tail and the next move's root
+observation.  Where the package's tail writes that observation itself (a
+``rec_obs_next`` argument), ``az_move_tail_us`` and ``move_end_us`` are
+that tail, timed twice (two samples of one number), and
+``az_move_tail_last_us`` the tail of a chunk's last move, which writes
+none; else ``az_move_tail_us`` is the tail and ``move_end_us`` each tail
+followed by ``az_root_obs`` on its output.  Then it prints the device time
+of ``az_root_init`` on the move's root and then of ``az_move_root_init``
 from the stub's prior with ``NEG`` on about 20% of actions and on the
 finished games, the stub's value and ``live = ~done`` (both idempotent:
 the same inputs, the same writes).  It also prints ``launch_floor_us``,
@@ -31,6 +38,7 @@ every one on its own copy of the snapshot (a step may not be repeated on
 its own output).
 """
 
+import inspect
 import sys
 
 
@@ -175,8 +183,27 @@ def main(root):
                                   else (B,), dtype=dt, device=dev)
                    for k, dt in fused._REC_TYPES.items()}
             u = torch.rand((B,), generator=gen, device=dev)
+            rec_next = torch.empty((B, env.feature_dim, env.rows, env.cols),
+                                   dtype=torch.int8, device=dev)
+            folded = "rec_obs_next" in inspect.signature(
+                fused.move_tail).parameters
+            nxt = (rec_next,) if folded else ()
+            snap = (board, player, mc)
             t_ms = on_copies(lambda bd, pl, m: fused.move_tail(
-                env, cfg, tree, u, bd, pl, m, rec), (board, player, mc), 200)
+                env, cfg, tree, u, bd, pl, m, rec, *nxt), snap, 200)
+            if folded:
+                e_ms = on_copies(lambda bd, pl, m: fused.move_tail(
+                    env, cfg, tree, u, bd, pl, m, rec, rec_next), snap, 200)
+                l_ms = on_copies(lambda bd, pl, m: fused.move_tail(
+                    env, cfg, tree, u, bd, pl, m, rec), snap, 200)
+            else:
+                def move_end(bd, pl, m):
+                    fused.move_tail(env, cfg, tree, u, bd, pl, m, rec)
+                    fused.root_obs(env, bd, pl, rec_next)
+                e_ms = on_copies(move_end, snap, 200)
+                l_ms = None
+            o_ms = device_ms(lambda: fused.root_obs(env, board, player,
+                                                    rec_next), 200)
             r_ms = device_ms(lambda: fused.root_init(
                 env, cfg, tree, p0, v0, noise, board), 200)
             cut = torch.rand(p0.shape, generator=gen, device=dev) < 0.2
@@ -187,6 +214,10 @@ def main(root):
                                     "az_apply_us": a_ms and a_ms * 1e3,
                                     "az_root_init_us": r_ms and r_ms * 1e3,
                                     "az_move_tail_us": t_ms and t_ms * 1e3,
+                                    "az_move_tail_last_us":
+                                        l_ms and l_ms * 1e3,
+                                    "move_end_us": e_ms and e_ms * 1e3,
+                                    "az_root_obs_us": o_ms and o_ms * 1e3,
                                     "az_root_counts_us": c_ms and c_ms * 1e3,
                                     "az_move_root_init_us":
                                         m_ms and m_ms * 1e3}

@@ -5,7 +5,9 @@
 // (one move's simulations from a host-evaluated root, which the arena and
 // the gate run), except their dense forward, which is csrc/dense_forward.cu.
 // The chunk's stages:
-//   az_root_obs      canonical root observation (+ its int8 record)
+//   az_root_obs      canonical root observation (+ its int8 record) of
+//                    the chunk's first move; az_move_tail writes those of
+//                    every later move
 //   az_root_init     Dirichlet mix, legal mask, root edges, tree init
 //   az_descend_leaf  PUCT walk with the leaf board built in the walk, leaf
 //                    terminal check, legal mask and canonical observation
@@ -13,8 +15,10 @@
 //   az_apply         expansion into the simulation's slot and backup
 //                    (pallas_fused._apply_sim)
 //   az_move_tail     root counts and root Q, inverse-CDF / argmax action,
-//                    env step, records, reset (pallas_fused._root_counts,
-//                    _sample_from_counts and the end of _chunk_kernel)
+//                    env step, records, reset, and the next move's root
+//                    observation and its record (pallas_fused._root_counts,
+//                    _sample_from_counts, the end of _chunk_kernel and the
+//                    root observation at its start, :866-874)
 // The move search runs az_move_root_init (root from the host's prior, value
 // and live flag: a finished game's root stays unexpanded, so every
 // simulation ends at the root as a terminal leaf), then az_descend_leaf /
@@ -56,7 +60,9 @@
 // over the root's edges, one round of dependent visit loads, counts in
 // registers, a shuffle sum).  az_move_root_init is elementwise: 16-byte
 // stores of the tree rows and lanes over the root's edges (its note below).
-// az_root_obs runs a thread per element.
+// The tail also writes the next move's root observation, lanes over cells
+// from stones kept in registers, so the chunk's az_root_obs (a thread per
+// element) runs for its first move alone.
 //
 // Games: the move rules (envs/core.py: Env.rules) are a template parameter
 // of the kernels that place a stone or build a legal mask (az_root_init,
@@ -482,15 +488,23 @@ __device__ __forceinline__ float root_q_of(float root_l, float root_v) {
 // room: the fallback with no visits may name a full one), lanes over lines
 // check for a win (a ballot over the group), one lane writes each record,
 // and a finished game's board is zeroed with lanes over cells, where an
-// unfinished one gains its stone.
+// unfinished one gains its stone.  Unless obs_next is null (the chunk's
+// last move), lanes over cells then write the next move's root
+// observation (B, F·RC) and its int8 record: the new mover 1 − p's plane,
+// p's plane with the new stone and, at F = 3, a plane of 1 − p; a finished
+// game's is an empty board with player 0.  Each lane keeps the stones of
+// the cells it staged as bits of a register (2·RC/G ≤ 64 of them), and
+// the lane of the new stone's cell sets its bit, so the stores read
+// nothing (a loop that read each cell back from shared memory before its
+// stores added 1.2-1.3 µs to the tail at connect4 B=512 on an H100).
 template <int RULES, int G>
 __global__ void __launch_bounds__(kThreads) move_tail_kernel(
     const float* visit, const float* val, const int32_t* child,
     const float* unif, int8_t* board, int32_t* player, int32_t* mc,
     const int32_t* lines, float* r_policy, int32_t* r_player, int32_t* r_t,
     int32_t* r_action, uint8_t* r_done, int32_t* r_winner, float* r_rootq,
-    int B, int N, int A, int R, int C, int L, int K, int max_moves,
-    int temperature_moves) {
+    float* obs_next, int8_t* rec_obs_next, int B, int N, int A, int R, int C,
+    int F, int L, int K, int max_moves, int temperature_moves) {
   constexpr int kGames = kThreads / G;
   constexpr int kEdges = G == 32 ? MAX_A / 32 : 1;  // edges a lane reads
   extern __shared__ int32_t s_lines[];  // (L, K): the game's lines
@@ -515,10 +529,16 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
   const float root_v = vs[0], root_l = val[(size_t)bc * N];
   int32_t cs[kEdges];
   root_edges<G>(ch0, A, lane, cs);
-  // both planes, so that the reads need not wait for the player
+  // both planes, so that the reads need not wait for the player; bit k of
+  // `stones` is the stone on cell lane + k·G of the two planes
   int8_t* bd = board + (size_t)bc * 2 * RC;
+  uint64_t stones = 0;
 #pragma unroll 4
-  for (int c = lane; c < 2 * RC; c += G) s_planes[gi][c] = (uint8_t)bd[c];
+  for (int c = lane, k = 0; c < 2 * RC; c += G, ++k) {
+    const int8_t v = bd[c];
+    s_planes[gi][c] = (uint8_t)v;
+    stones |= (uint64_t)(v != 0) << k;
+  }
   uint8_t* pl = s_planes[gi] + p * RC;  // the mover's plane
   int* h = s_h[RULES == RULES_GRAVITY ? gi : 0];
   if (RULES == RULES_GRAVITY) {
@@ -612,6 +632,25 @@ __global__ void __launch_bounds__(kThreads) move_tail_kernel(
     for (int c = lane; c < 2 * RC; c += G) bd[c] = 0;
   else if (lane == 0 && cell >= 0)
     bd[p * RC + cell] = 1;
+  if (obs_next == nullptr) return;
+  // the next root: plane 1 - p to row 0, plane p with the stone to row 1
+  const int sc = p * RC + cell;  // the new stone's cell in the two planes
+  if (!done && cell >= 0 && sc % G == lane) stones |= 1ull << (sc / G);
+  float* o = obs_next + (size_t)b * F * RC;
+  int8_t* ro = rec_obs_next + (size_t)b * F * RC;
+  for (int c = lane, k = 0; c < 2 * RC; c += G, ++k) {
+    const int plane = c >= RC;
+    const int e = (plane == p ? RC : 0) + c - plane * RC;
+    const int x = done ? 0 : (int)((stones >> k) & 1);
+    o[e] = (float)x;
+    ro[e] = (int8_t)x;
+  }
+  const int q = done ? 0 : 1 - p;
+  if (F == 3)
+    for (int c = 2 * RC + lane; c < 3 * RC; c += G) {
+      o[c] = (float)q;
+      ro[c] = (int8_t)q;
+    }
 }
 
 // ---- the move search (pallas_fused._move_kernel): the root comes from the
@@ -806,11 +845,13 @@ int az_move_tail(const void* visit, const void* val, const void* child,
                  const void* unif, void* board, void* player, void* mc,
                  const void* lines, void* r_policy, void* r_player, void* r_t,
                  void* r_action, void* r_done, void* r_winner, void* r_rootq,
-                 int B, int N, int A, int R, int C, int L, int K,
-                 int max_moves, int rules, int temperature_moves,
-                 void* stream) {
+                 void* obs_next, void* rec_obs_next, int B, int N, int A,
+                 int R, int C, int F, int L, int K, int max_moves, int rules,
+                 int temperature_moves, void* stream) {
   const size_t line_bytes = (size_t)L * K * sizeof(int32_t);
-  if (L < 0 || K < 1 || line_bytes > kLineBytes)
+  if (L < 0 || K < 1 || line_bytes > kLineBytes ||
+      (obs_next == nullptr) != (rec_obs_next == nullptr) ||
+      (obs_next != nullptr && F != 2 && F != 3))
     return (int)cudaErrorInvalidValue;
   return with_rules<MAX_A>(A, R, C, rules, [&](auto rl) {
     with_group(A, [&](auto gl) {
@@ -821,8 +862,9 @@ int az_move_tail(const void* visit, const void* val, const void* child,
               (const float*)unif, (int8_t*)board, (int32_t*)player,
               (int32_t*)mc, (const int32_t*)lines, (float*)r_policy,
               (int32_t*)r_player, (int32_t*)r_t, (int32_t*)r_action,
-              (uint8_t*)r_done, (int32_t*)r_winner, (float*)r_rootq, B, N, A,
-              R, C, L, K, max_moves, temperature_moves);
+              (uint8_t*)r_done, (int32_t*)r_winner, (float*)r_rootq,
+              (float*)obs_next, (int8_t*)rec_obs_next, B, N, A, R, C, F, L, K,
+              max_moves, temperature_moves);
     });
   });
 }

@@ -9,7 +9,11 @@ all B games:
   → S−1 × (PUCT descent with the leaf board built in the walk → dense
   forward of the leaf → expansion + backup) → root visit counts → action
   (inverse-CDF sample on a supplied uniform before ``temperature_moves``,
-  first argmax after) → env step → records → reset of finished games.
+  first argmax after) → env step → records → reset of finished games →
+  the next move's root observation.
+
+The root observation of the chunk's first move has a stage of its own;
+the tail of each move writes that of the next one.
 
 The move search (:func:`run_mcts_fused`, what the arena and the gate run)
 evaluates and mixes the root on the host, initialises the tree from that
@@ -37,11 +41,11 @@ count): the walk reads a node's A edges across the group and reduces them
 to the first maximum, the leaf finish and the expansion spread their
 cells, lines, actions and plies over it, the tree init its edges and tree
 rows, the tail and the root counts the root's counts (summed over the
-group), the tail its records and board; the tail's inverse-CDF sum alone
-stays serial, its bits depend on the order (:func:`search_geometry`, the
-``search.cu`` header).  The move search's tree init is elementwise
-(16-byte stores of the tree rows, lanes over the root's edges), the root
-observation a thread per element.
+group), the tail its records, board and the next root's observation; the
+tail's inverse-CDF sum alone stays serial, its bits depend on the order
+(:func:`search_geometry`, the ``search.cu`` header).  The move search's
+tree init is elementwise (16-byte stores of the tree rows, lanes over the
+root's edges), the first move's root observation a thread per element.
 
 The tree lives in device memory with games in rows: ``visit``/``val``
 ``(B, N)`` float32 with N = S+1, edges ``child (B, N, A)`` int32 (node id,
@@ -593,10 +597,13 @@ def apply_reference(tree: Tree, slot: int, probs, value):
 
 
 def move_tail_reference(env, cfg: MCTSConfig, tree: Tree, u, board, player,
-                        mc, rec):
+                        mc, rec, rec_obs_next=None):
     """Root visit counts and root Q, the action, the env step, the move's
     records and the reset of finished games (``board``/``player``/``mc``
-    updated in place).  ``rec`` maps record names to this move's slices."""
+    updated in place).  ``rec`` maps record names to this move's slices.
+    With ``rec_obs_next (B, F, R, C)`` (the next move's record) it returns
+    :func:`root_obs_reference` of the board and player after the move, else
+    None (the chunk's last move)."""
     B, A = tree.B, tree.A
     R, C = env.rows, env.cols
     dev = board.device
@@ -645,6 +652,9 @@ def move_tail_reference(env, cfg: MCTSConfig, tree: Tree, u, board, player,
     board[done] = 0
     player.copy_(torch.where(done, torch.zeros_like(player), 1 - player))
     mc.copy_(torch.where(done, torch.zeros_like(mc), mc1))
+    if rec_obs_next is None:
+        return None
+    return root_obs_reference(env, board, player, rec_obs_next)
 
 
 def move_root_init_reference(tree: Tree, root_prior, value, live):
@@ -745,7 +755,8 @@ K_APPLY = CudaKernel("search.cu", "az_apply", [
 K_TAIL = CudaKernel("search.cu", "az_move_tail", [
     _P, _P, _P, _P, _P, _P, _P, _P,       # visit val child unif board player mc lines
     _P, _P, _P, _P, _P, _P, _P,           # rec policy player t action done winner root_q
-    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B N A R C L K max_moves rules temp
+    _P, _P,                               # obs_next rec_obs_next
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B N A R C F L K max_moves rules temp
     _P])                                  # stream
 K_MOVE_ROOT_INIT = CudaKernel("search.cu", "az_move_root_init", [
     _P, _P, _P, _P, _P, _P, _P,           # visit val child prior root_prior value live
@@ -845,25 +856,36 @@ _REC_TYPES = {"policy": torch.float32, "player": torch.int32,
               "winner": torch.int32, "root_q": torch.float32}
 
 
-def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec):
-    """``az_move_tail`` for CUDA tensors, :func:`move_tail_reference` for CPU tensors."""
+def move_tail(env, cfg: MCTSConfig, tree: Tree, u, board, player, mc, rec,
+              rec_obs_next=None):
+    """``az_move_tail`` for CUDA tensors, :func:`move_tail_reference` for
+    CPU tensors.  The next root's observation is a new tensor each call."""
     if plain(board):
-        return move_tail_reference(env, cfg, tree, u, board, player, mc, rec)
+        return move_tail_reference(env, cfg, tree, u, board, player, mc, rec,
+                                   rec_obs_next)
     dev = board.device
     B, N, A = tree.B, tree.N, tree.A
+    R, C, F = env.rows, env.cols, env.feature_dim
     tree.check(dev)
     check(u, torch.float32, (B,), dev, "unif")
     _board_check(env, board, player, mc, dev)
     for name, dt in _REC_TYPES.items():
         check(rec[name], dt, (B, A) if name == "policy" else (B,), dev,
                f"rec.{name}")
+    obs = None
+    if rec_obs_next is not None:
+        check(rec_obs_next, torch.int8, (B, F, R, C), dev, "rec_obs_next")
+        obs = torch.empty((B, F * R * C), dtype=torch.float32, device=dev)
     L, K = tree.lines.shape
     K_TAIL(tree.visit.data_ptr(), tree.val.data_ptr(), tree.child.data_ptr(),
            u.data_ptr(), board.data_ptr(), player.data_ptr(), mc.data_ptr(),
            tree.lines.data_ptr(),
            *(rec[name].data_ptr() for name in _REC_TYPES),
-           B, N, A, env.rows, env.cols, L, K, env.max_moves, env.rules,
+           None if obs is None else obs.data_ptr(),
+           None if obs is None else rec_obs_next.data_ptr(),
+           B, N, A, R, C, F, L, K, env.max_moves, env.rules,
            int(cfg.temperature_moves), stream(board))
+    return obs
 
 
 def move_root_init(tree: Tree, root_prior, value, live):
@@ -959,8 +981,9 @@ def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
            for name, dt in _REC_TYPES.items()}
     rec_obs = torch.zeros((M, B, F, R, C), dtype=torch.int8, device=dev)
     tree = Tree(env, B, S, dev)
+    # the first move's root; each tail writes the next one's
+    obs = ops.root_obs(env, board, player, rec_obs[0]) if M else None
     for m in range(M):
-        obs = ops.root_obs(env, board, player, rec_obs[m])
         probs0, value0 = evaluator(obs)
         ops.root_init(env, cfg, tree, probs0, value0,
                       noise[m] if cfg.use_dirichlet else None, board)
@@ -968,8 +991,9 @@ def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
             ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
             probs, value = evaluator(tree.obs)
             ops.apply(tree, slot, probs, value)
-        ops.move_tail(env, cfg, tree, unif[m], board, player, mc,
-                      {k: v[m] for k, v in rec.items()})
+        obs = ops.move_tail(env, cfg, tree, unif[m], board, player, mc,
+                            {k: v[m] for k, v in rec.items()},
+                            rec_obs[m + 1] if m + 1 < M else None)
     out = dict(rec)
     out.update(obs=rec_obs, board=board, player_final=player, mc_final=mc)
     return out

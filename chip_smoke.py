@@ -26,9 +26,11 @@ Phases (any failure exits non-zero before the final line):
      az_root_counts: lanes per game, games per CTA, CTAs) at self-play's
      batch and the gate's, as the kernels report it; the device time of
      az_root_init and az_move_tail at self-play's batch (``device_ms``;
-     each tail on its own copy of the board); both kernels bit for bit on the case trees of the card-only
-     tests (``root_trees``, ``tail_trees``) at connect4 and tictactoe,
-     B=512;
+     each tail on its own copy of the board; the tail with the next move's
+     root observation, as the chunk runs every move but its last, and
+     without); both kernels bit for bit on the case trees of the card-only
+     tests (``root_trees``, ``tail_trees``; the tail with the next root
+     and without) at connect4 and tictactoe, B=512;
   6. the move search (the gate's search, kernel 2) on the card against its
      plain version, bit for bit, under the exact stub evaluator at B=128,
      S=200 with Dirichlet noise fed to both and live, won and drawn games
@@ -590,8 +592,18 @@ def root_tail_cases(games, B, dev):
             t.check_tail_cases(env, board, *want)
         except AssertionError as e:
             bad.append(f"tail case {e}")
+        # the tail that writes the next move's root observation
+        got, want = [t.tail_with_next_root(tail, env, cfg, tree, u, board,
+                                           player, mc)
+                     for tail in (fused.move_tail, fused.move_tail_reference)]
+        try:
+            t.next_root_equal(got, want)
+            t.check_tail_cases(env, board, *want[0])
+        except AssertionError as e:
+            bad.append(f"az_move_tail with the next root: {e}")
         log(f"[root/tail cases] {game} B={B}: az_root_init (with noise and "
-            f"without) and az_move_tail on root_trees / tail_trees: "
+            f"without) and az_move_tail (with the next root and without) on "
+            f"root_trees / tail_trees: "
             f"{'bitwise equal, every case holds' if not bad else bad}")
         if bad:
             fail(f"az_root_init / az_move_tail at {game} B={B}: {bad}")
@@ -601,8 +613,9 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev, case_games):
     """Each search kernel of the chunk against its plain version on a
     snapshot of the trainer's self-play state (a main-path move of the
     trainer's game), with times and bounds, the device time of
-    az_root_init and az_move_tail, the group kernels' launch geometry, and
-    the root and tail on the case trees of ``case_games`` (at the chunk's
+    az_root_init and az_move_tail (the tail with the next move's root
+    observation and without), the group kernels' launch geometry, and the
+    root and tail on the case trees of ``case_games`` (at the chunk's
     batch): ``{kernel: summary}``."""
     from alphazero_tpu_torch.search import fused
     summary = {}
@@ -723,40 +736,55 @@ def chunk_kernels_phase(env, mcfg, tr, gen, dev, case_games):
         rec[k] = torch.zeros((B,), dtype=torch.int32, device=dev)
     rec["done"] = torch.zeros((B,), dtype=torch.bool, device=dev)
     rec["root_q"] = torch.zeros((B,), device=dev)
+    rec_next = torch.zeros((B, F, env.rows, env.cols), dtype=torch.int8,
+                           device=dev)
     tstate = {"tree": tree, "u": u, "board": board, "player": player,
-              "mc": mc, **{f"rec_{k}": v for k, v in rec.items()}}
+              "mc": mc, "rec_next": rec_next,
+              **{f"rec_{k}": v for k, v in rec.items()}}
 
     def recs(s):
         return {k: s[f"rec_{k}"] for k in rec}
 
+    # the tail of every move but the chunk's last: it also writes the next
+    # move's root observation and its record
     ms = compare("az_move_tail",
                  lambda s: fused.move_tail(env, mcfg, s["tree"], s["u"],
                                            s["board"], s["player"], s["mc"],
-                                           recs(s)),
+                                           recs(s), s["rec_next"]),
                  lambda s: fused.move_tail_reference(
                      env, mcfg, s["tree"], s["u"], s["board"], s["player"],
-                     s["mc"], recs(s)),
+                     s["mc"], recs(s), s["rec_next"]),
                  tree_clone(tstate),
                  [out(lambda s, r, k=k: s[k], k) for k in
                   ("board", "player", "mc")]
                  + [out(lambda s, r, k=k: s[f"rec_{k}"], f"rec_{k}")
-                    for k in rec])
+                    for k in rec]
+                 + [out(lambda s, r: r, "obs_next"),
+                    out(lambda s, r: s["rec_next"], "rec_obs_next")])
     t_bytes = (B * A * 4 * 2 + B * 8 * 2 + nbytes(u) + 2 * nbytes(board)
-               + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1))
+               + 4 * B * 4 + B * (A * 4 + 5 * 4 + 1) + B * F * RC * 5)
     b_ms, b_by = bound(t_bytes, f32_ops=4.0 * B * A)
-    # the tail steps the board: every timed call on its own copy
-    pool = iter([(board.clone(), player.clone(), mc.clone())
-                 for _ in range(1 + 4 * 200)])
-    t_dev = device_ms([("az_move_tail", lambda: fused.move_tail(
-        env, mcfg, tree, u, *next(pool), rec), 200)])
+
+    def on_copies(*tail_args):
+        """A tail on its own copy of the board, player and move count per
+        call: the tail steps them."""
+        pool = iter([(board.clone(), player.clone(), mc.clone())
+                     for _ in range(1 + 4 * 200)])
+        return lambda: fused.move_tail(env, mcfg, tree, u, *next(pool), rec,
+                                       *tail_args)
+
+    t_dev = device_ms([("az_move_tail", on_copies(rec_next), 200),
+                       ("last move", on_copies(), 200)])
     summary["az_move_tail"] = dict(**ms, bound_ms=b_ms, bound_by=b_by,
                                    device_ms=t_dev["az_move_tail"],
                                    geometry=geometry)
     us = {k: "not measured" if t is None else f"{t * 1e3:.2f} us"
           for k, t in (("root", r_dev["az_root_init"]),
-                       ("tail", t_dev["az_move_tail"]))}
+                       ("tail", t_dev["az_move_tail"]),
+                       ("last", t_dev["last move"]))}
     log(f"  device time at B={B} (device_ms): az_root_init {us['root']}, "
-        f"az_move_tail {us['tail']} per launch")
+        f"az_move_tail {us['tail']} with the next root, {us['last']} "
+        f"without (the chunk's last move) per launch")
     torch.cuda.synchronize()
     return summary
 
@@ -2007,7 +2035,7 @@ def dense_games_phase(gen, dev):
     searches = 2 * env.max_moves
     expect = {
         "collect": {"az_dense_forward": chunks * M * S,
-                    "az_root_obs": chunks * M, "az_root_init": chunks * M,
+                    "az_root_obs": chunks, "az_root_init": chunks * M,
                     "az_descend_leaf": chunks * M * (S - 1),
                     "az_apply": chunks * M * (S - 1),
                     "az_move_tail": chunks * M, "az_move_root_init": 0,
@@ -2210,7 +2238,7 @@ def main():
     launches = {k.name: k.launches for k in fused.KERNELS}
     chunks = len(m["chunk_seconds"])
     M = cfg.train.selfplay_chunk_steps or 32
-    expect = {"az_dense_forward": chunks * M * S, "az_root_obs": chunks * M,
+    expect = {"az_dense_forward": chunks * M * S, "az_root_obs": chunks,
               "az_root_init": chunks * M, "az_descend_leaf": chunks * M * (S - 1),
               "az_apply": chunks * M * (S - 1), "az_move_tail": chunks * M,
               "az_move_root_init": 0, "az_root_counts": 0}

@@ -97,8 +97,12 @@ def test_chunk_kernels_bitwise_vs_plain_chunk(dev, dirichlet, formula):
     boards = torch.zeros((B, 2, env.rows, env.cols), dtype=torch.int8,
                          device=dev)
     kw = dict(noise=noise, unif=unif, evaluator=exact_stub_evaluator(env))
+    n_obs, n_tail = fused.K_ROOT_OBS.launches, fused.K_TAIL.launches
     got = fused.run_selfplay_chunk(env, None, None, boards, zeros, zeros, cfg,
                                    M, device=dev, **kw)
+    # the first move's root has its own launch, the tails write the rest
+    assert fused.K_ROOT_OBS.launches == n_obs + 1
+    assert fused.K_TAIL.launches == n_tail + M
     want = fused.selfplay_chunk_reference(env, None, None, boards, zeros,
                                           zeros, cfg, M, **kw)
     for k in want:
@@ -1034,6 +1038,31 @@ def tail_outputs_equal(a, b):
         assert torch.equal(a[3][name], b[3][name]), f"rec.{name}"
 
 
+def tail_with_next_root(tail, env, cfg, tree, u, board, player, mc):
+    """One call of ``tail`` (``fused.move_tail`` or its plain version) on
+    copies of the state, writing the next move's root: its record is the
+    middle one of three rows filled with 7.  Returns ``((board, player, mc,
+    rec), rows, obs)``."""
+    B, F = board.shape[0], env.feature_dim
+    st = (board.clone(), player.clone(), mc.clone(),
+          tail_records(B, env.action_dim, board.device))
+    rows = torch.full((3, B, F, env.rows, env.cols), 7, dtype=torch.int8,
+                      device=board.device)
+    return st, rows, tail(env, cfg, tree, u, *st, rows[1])
+
+
+def next_root_equal(got, want):
+    """Outputs of :func:`tail_with_next_root` for kernel and plain version:
+    bit for bit, the rows around the record untouched, a finished game's
+    next root an empty board with player 0."""
+    tail_outputs_equal(got[0], want[0])
+    assert torch.equal(got[2], want[2]), "obs"
+    assert torch.equal(got[1], want[1]), "rec_obs"
+    assert (got[1][0] == 7).all() and (got[1][2] == 7).all()
+    done = want[0][3]["done"]
+    assert (got[2][done] == 0).all()
+
+
 @pytest.mark.parametrize("game,B", ROOT_TAIL_BATCHES)
 def test_root_init_one_launch_bitwise(dev, game, B):
     """az_root_init against its plain version bit for bit on the whole tree
@@ -1069,12 +1098,33 @@ def test_move_tail_one_launch_bitwise(dev, game, B):
     n0 = fused.K_TAIL.launches
     got, want = [(board.clone(), player.clone(), mc.clone(),
                   tail_records(B, A, dev)) for _ in range(2)]
-    fused.move_tail(env, cfg, tree, u, *got)
+    # the chunk's last move: no next root
+    assert fused.move_tail(env, cfg, tree, u, *got) is None
     fused.move_tail_reference(env, cfg, tree, u, *want)
     tail_outputs_equal(got, want)
     check_tail_cases(env, board, *want)
     assert fused.K_TAIL.launches == n0 + 1
     assert fused.search_kernel_geometry(B, A) == fused.search_geometry(B, A)
+
+
+@pytest.mark.parametrize("game,B", ROOT_TAIL_BATCHES)
+def test_move_tail_next_root_one_launch_bitwise(dev, game, B):
+    """az_move_tail writing the next move's root: its float32 observation
+    and int8 record bit for bit against the plain version (the tail
+    followed by root_obs_reference), with the board, player, move count
+    and records, on the trees of :func:`tail_trees` (games won and drawn on
+    the move, so reset), at the batches of the root test (F = 3 on connect4
+    and tictactoe, 2 on gomoku9); nothing outside the record is written."""
+    env = make_env(game)
+    cfg, tree, u, board, player, mc = tail_trees(env, B, 32, dev)
+    n0 = fused.K_TAIL.launches
+    got = tail_with_next_root(fused.move_tail, env, cfg, tree, u, board,
+                              player, mc)
+    assert fused.K_TAIL.launches == n0 + 1
+    want = tail_with_next_root(fused.move_tail_reference, env, cfg, tree, u,
+                               board, player, mc)
+    next_root_equal(got, want)
+    check_tail_cases(env, board, *want[0])
 
 
 # ---- one launch of az_root_counts and az_move_root_init on case trees
