@@ -7,8 +7,9 @@ wrote in Pallas for the TPU is a CUDA kernel written by hand for sm_90a
 against a plain PyTorch version of the same function.
 
 Ported so far: every TPU kernel of the JAX package and the outer
-iteration, ``training.loop.Trainer.iterate``, for the dense tower (connect4)
-and the conv ResNet (tictactoe, connect4, gomoku), driven by the command
+iteration, ``training.loop.Trainer.iterate``, for the dense tower (connect4,
+gomoku), the conv ResNet (tictactoe, connect4, gomoku) and the ViT (gomoku
+7×7, with dropout in the learner and depth surgery), driven by the command
 line ``python -m alphazero_tpu_torch train|eval|play|bench`` (``cli.py``):
 self-play collection (``collect`` → ``training.selfplay``: the dense
 tower's whole-chunk search ``search.fused.run_selfplay_chunk``, or one
@@ -21,14 +22,15 @@ other networks, the leaf-batched rounds of ``search.mcts.run_mcts_xla`` for
 search), promote or revert, the vanilla sanity match, checkpoints, metrics
 and ``config.json``.  With ``AZ_FUSED_RESNET=1`` (``make_eval_fn(...,
 fused_resnet=True)``) the ResNet evaluates through the fused tower kernel
-``ops.resnet_tower``.  Not ported: the ViT and multi-process training.
+``ops.resnet_tower``.  Not ported: multi-process training.
 
 Layer map:
   cli.py     — train / eval / play / bench subcommands (``__main__.py``)
   bench.py   — self-play throughput of every preset on one GPU
   config.py  — configuration dataclasses, presets, ``config.json``
   envs/      — batched game rules on tensors
-  models/    — the dense tower and the conv ResNet, ``make_eval_fn``
+  models/    — the dense tower, the conv ResNet and the ViT,
+               ``make_eval_fn``, depth surgery (``models.surgery``)
   search/    — MCTS: the whole-chunk self-play and move searches, the
                per-simulation engine (kernels + plain versions), the
                portable engine with leaf batching and rollouts, the

@@ -12,7 +12,9 @@ flags, so that one command line does the same in both packages:
 (self-play, gate, eval, play and bench), as in the JAX package.  The port
 adds ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
 PyTorch path on the CPU, the port's counterpart of ``JAX_PLATFORMS=cpu``).
-Flags of parts not yet ported exit non-zero naming their ROADMAP module.
+``train --expand-depth N`` grows a ViT's depth after ``--resume``, as in
+the JAX package.  Flags of parts not yet ported (multi-process training)
+exit non-zero naming their ROADMAP module.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ UNPORTED = {
     "coordinator": "module 12 (multi-process training)",
     "num_processes": "module 12 (multi-process training)",
     "process_id": "module 12 (multi-process training)",
-    "expand_depth": "module 11 (the ViT)",
 }
 
 
@@ -37,12 +38,6 @@ def _refuse_unported(args):
         if getattr(args, flag, None) is not None:
             sys.exit(f"--{flag.replace('_', '-')} is not ported yet: it is "
                      f"{module} of ROADMAP.md")
-
-
-def _refuse_vit(cfg):
-    if cfg.model.family == "vit":
-        sys.exit("the ViT family is not ported yet: it is module 11 (the "
-                 "ViT) of ROADMAP.md")
 
 
 def _apply_overrides(cfg, args):
@@ -103,7 +98,6 @@ def cmd_train(args):
 
     _refuse_unported(args)
     cfg = _apply_overrides(preset(args.preset), args)
-    _refuse_vit(cfg)
     logger = MetricsLogger(path=f"{args.workdir}/metrics.jsonl"
                            if args.workdir else None)
     tr = Trainer(cfg, device=args.device, workdir=args.workdir,
@@ -115,6 +109,9 @@ def cmd_train(args):
               file=sys.stderr)
     if (args.resume or args.train_only) and tr.restore_checkpoint():
         print(f"resumed at version {tr.version}", file=sys.stderr)
+    if args.expand_depth:
+        tr.expand_depth(args.expand_depth)
+        print(f"expanded ViT depth to {args.expand_depth}", file=sys.stderr)
     with trace(args.profile_dir):
         _run_train(tr, args)
     logger.close()
@@ -146,7 +143,6 @@ def cmd_eval(args):
     from alphazero_tpu_torch.training.loop import Trainer
 
     cfg = _run_cfg(preset(args.preset), args.workdir)
-    _refuse_vit(cfg)
     fused = args.fused_resnet
     tr = Trainer(cfg, device=args.device, workdir=args.workdir,
                  persist_config=False, fused_resnet=fused)
@@ -200,7 +196,6 @@ def cmd_play(args):
         env = make_env(cfg.env)
     else:
         cfg = _run_cfg(cfg, args.workdir)
-        _refuse_vit(cfg)
         tr = Trainer(cfg, device=args.device, workdir=args.workdir,
                      persist_config=False, fused_resnet=args.fused_resnet)
         if args.workdir:
@@ -243,7 +238,8 @@ def _parser():
                         "checkpoint workdir")
     t.add_argument("--load-buffer-step", type=int, default=None)
     t.add_argument("--expand-depth", type=int, default=None,
-                   help="grow the ViT's depth (module 11, not ported)")
+                   help="grow the ViT's depth (after --resume), keeping "
+                        "its trained blocks")
     t.add_argument("--mesh", default=None,
                    help="train over a device mesh (module 12, not ported)")
     t.add_argument("--coordinator", default=None,
@@ -258,8 +254,7 @@ def _parser():
                    help="override the preset's Adam learning rate")
     t.add_argument("--model-family", dest="model_family", default=None,
                    choices=["vit", "resnet", "dense"],
-                   help="override the preset's net family (vit: module 11, "
-                        "not ported)")
+                   help="override the preset's net family")
     t.add_argument("--model-width", dest="model_width", type=int,
                    default=None, help="dense-family width override")
     t.add_argument("--model-blocks", dest="model_blocks", type=int,

@@ -42,8 +42,9 @@ class MCTSConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Policy/value network: ``'dense'`` and ``'resnet'`` are ported, the
-    ViT (``'vit'``) is not."""
+    """Policy/value network: the ViT (``'vit'``, embedding, depth, patch,
+    heads, dropout), the conv ResNet (``'resnet'``, channels, blocks) or
+    the dense tower (``'dense'``, width, blocks)."""
 
     family: str = "vit"  # 'vit' | 'resnet' | 'dense'
     embed_dim: int = 512

@@ -1,5 +1,5 @@
-"""Policy/value networks and evaluator adapters: the dense tower and the
-convolutional ResNet."""
+"""Policy/value networks and evaluator adapters: the dense tower, the
+convolutional ResNet and the Vision Transformer."""
 
 from __future__ import annotations
 
@@ -9,17 +9,24 @@ import torch
 from torch.func import functional_call
 
 from alphazero_tpu_torch.config import ModelConfig
-from alphazero_tpu_torch.models import dense, resnet
+from alphazero_tpu_torch.models import dense, resnet, vit
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.models.resnet import ResNet
+from alphazero_tpu_torch.models.vit import ViT
 from alphazero_tpu_torch.ops.resnet_tower import (make_fused_apply,
                                                   supports_fused_resnet)
 
 
 def build_model(cfg: ModelConfig, env):
-    """The configured network (``"dense"`` or ``"resnet"``) for an env's
-    geometry."""
+    """The configured network (``"vit"``, ``"resnet"`` or ``"dense"``) for
+    an env's geometry."""
     dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vit":
+        return ViT(
+            rows=env.rows, cols=env.cols, action_dim=env.action_dim,
+            channels=env.feature_dim, embed_dim=cfg.embed_dim,
+            patch_size=cfg.patch_size, num_heads=cfg.num_heads,
+            depth=cfg.depth, dropout=cfg.dropout, dtype=dtype)
     if cfg.family == "dense":
         return DenseTower(
             rows=env.rows, cols=env.cols, action_dim=env.action_dim,
@@ -30,16 +37,20 @@ def build_model(cfg: ModelConfig, env):
             rows=env.rows, cols=env.cols, action_dim=env.action_dim,
             channels_in=env.feature_dim, channels=cfg.channels,
             blocks=cfg.blocks, dtype=dtype)
-    raise ValueError(f"model family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def init_params(model, generator: torch.Generator) -> dict:
     """Fresh parameters drawn as flax initialises them: truncated-normal
     LeCun kernels (fan-in scaling, the fan-in of a conv kernel being
-    ``in·kh·kw``), zero biases, unit LayerNorm scales."""
+    ``in·kh·kw``), zero biases, unit LayerNorm scales, and the ViT's CLS
+    token and position embedding from an untruncated normal(1.0)."""
     out = {}
     for name, p in model.named_parameters():
-        if name.endswith("bias"):
+        if name in ("cls_token", "pos_embed"):
+            w = torch.randn(p.shape, generator=generator)
+            out[name] = w.to(p.device)
+        elif name.endswith("bias"):
             out[name] = torch.zeros_like(p)
         elif p.dim() == 1:                  # LayerNorm scale
             out[name] = torch.ones_like(p)
@@ -55,8 +66,10 @@ def init_params(model, generator: torch.Generator) -> dict:
 
 
 def params_from_flax(params_np) -> dict:
-    """Flax parameter tree (numpy leaves) of either family → the torch
+    """Flax parameter tree (numpy leaves) of any family → the torch
     module's ``state_dict``."""
+    if "cls_token" in params_np:
+        return vit.params_from_flax(params_np)
     if "stem_ln" in params_np:
         return resnet.params_from_flax(params_np)
     return dense.params_from_flax(params_np)
@@ -95,5 +108,5 @@ def make_eval_fn(model, params: dict, fused_resnet: bool = False):
     return eval_fn
 
 
-__all__ = ["DenseTower", "ResNet", "build_model", "init_params",
+__all__ = ["DenseTower", "ResNet", "ViT", "build_model", "init_params",
            "make_eval_fn", "params_from_flax"]

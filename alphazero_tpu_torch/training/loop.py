@@ -6,17 +6,20 @@ best) trains on it; the gate plays contender against best and promotes the
 contender when its win rate exceeds ``gate_threshold``, else reverts it.
 Collection doubles after ``reject_double_after`` rejections in a row, and
 every ``vanilla_eval_every`` promotions the best parameters play a sanity
-match against vanilla (rollout) search.  Any ported family trains: the
-dense tower collects through the whole-chunk search, the ResNet move by
-move on the per-simulation engine (its forward the fused tower kernel with
-``fused_resnet``; the learner keeps the module forward).  Every phase logs a
+match against vanilla (rollout) search.  Every family trains: the dense
+tower collects through the whole-chunk search, the ResNet and the ViT move
+by move on the per-simulation engine (the ResNet's forward the fused tower
+kernel with ``fused_resnet``; the learner keeps the module forward, the
+ViT's with dropout on).  :meth:`Trainer.expand_depth` grows a ViT's depth
+in place.  Every phase logs a
 JSON-line record (``collect``, ``train``, ``gate``, ``vanilla_eval``,
 ``iteration``, with the JAX package's field names); with a ``workdir`` the
 run's ``config.json`` is written there and every promotion saves a
 checkpoint (``utils/checkpoint.py``) of both parameter sets, the replay
-buffer, the generator of the learner's and the gate's draws, ``version``
-and ``outer_iter``, what the JAX package saves.  Neither package saves the
-self-play state.
+buffer, the generators of the learner's samples and the gate's draws and of
+the learner's dropout, ``version`` and ``outer_iter``, what the JAX package
+saves (its one RNG key stands for both generators).  Neither package saves
+the self-play state.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.eval.arena import Agent, compare
 from alphazero_tpu_torch.models import build_model, init_params, make_eval_fn
+from alphazero_tpu_torch.models.surgery import expand_vit_depth
 from alphazero_tpu_torch.training import learner
 from alphazero_tpu_torch.training.selfplay import (init_selfplay,
                                                    make_selfplay_runner)
@@ -80,6 +84,9 @@ class Trainer:
         # draws of the learner's samples and of the gate's matches
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + 2)
+        # the learner's dropout masks
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(cfg.train.seed + 3)
         self.version = 0
         self.outer_iter = 0
         self.reject_count = 0
@@ -93,8 +100,9 @@ class Trainer:
                                             fused_resnet)
         self._ckpt = (CheckpointManager(f"{workdir}/checkpoints")
                       if workdir else None)
-        if workdir and persist_config:
-            save_config(cfg, workdir)
+        self._config_dir = workdir if persist_config else None
+        if self._config_dir:
+            save_config(cfg, self._config_dir)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -163,6 +171,7 @@ class Trainer:
         self.params_new, metrics = learner.train_epoch(
             self.model, self.params_new, self.buffer, t, steps,
             generator=self.generator,
+            dropout_generator=self.dropout_generator,
             syms=self._syms if self.cfg.replay.augment else None,
             augment_skip=self.cfg.replay.augment_skip_moves,
             chunk_steps=TRAIN_CHUNK_STEPS)
@@ -256,6 +265,7 @@ class Trainer:
             "buffer": {f.name: getattr(self.buffer, f.name)
                        for f in dataclasses.fields(ReplayBuffer)},
             "generator": self.generator.get_state(),
+            "dropout_generator": self.dropout_generator.get_state(),
             "version": torch.tensor(self.version),
             "outer_iter": torch.tensor(self.outer_iter),
         }
@@ -282,6 +292,7 @@ class Trainer:
         self.buffer = ReplayBuffer(**{k: v.to(dev) for k, v in
                                       state["buffer"].items()})
         self.generator.set_state(state["generator"])
+        self.dropout_generator.set_state(state["dropout_generator"])
         self.version = int(state["version"])
         self.outer_iter = int(state["outer_iter"])
         return True
@@ -318,10 +329,27 @@ class Trainer:
         return k
 
     def expand_depth(self, new_depth: int):
-        """Depth expansion of the ViT; the ViT is module 11 of ROADMAP.md
-        and is not ported, so this raises for every family."""
+        """Grow the ViT to ``new_depth`` blocks in place: both parameter
+        sets keep every parameter they share with the deeper model, and
+        their new blocks get the same fresh draw (one seed from
+        ``generator``).  The model, the config (and the run's
+        ``config.json``) and the self-play runner are replaced.  Raises
+        ``ValueError`` for another family."""
         if self.cfg.model.family != "vit":
             raise ValueError("depth expansion applies to the ViT family "
                              f"(this run: {self.cfg.model.family!r})")
-        raise NotImplementedError("the ViT family is module 11 of "
-                                  "ROADMAP.md, not ported")
+        seed = int(torch.randint(2 ** 62, (1,), generator=self.generator,
+                                 device=self.device))
+        mcfg, self.model, self.params_best = expand_vit_depth(
+            self.cfg.model, self.env, self.params_best, new_depth,
+            torch.Generator().manual_seed(seed))
+        _, _, self.params_new = expand_vit_depth(
+            self.cfg.model, self.env, self.params_new, new_depth,
+            torch.Generator().manual_seed(seed))
+        self.cfg = dataclasses.replace(self.cfg, model=mcfg)
+        self._runner = make_selfplay_runner(self.env, self.model,
+                                            self.cfg.mcts, self.cfg.replay,
+                                            self._chunk_steps,
+                                            self.fused_resnet)
+        if self._config_dir:
+            save_config(self.cfg, self._config_dir)

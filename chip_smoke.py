@@ -103,12 +103,31 @@ Phases (any failure exits non-zero before the final line):
      counts (device times, case trees) at gomoku9 B=128; one chunk and one
      gate move profiled (az_root_counts must be in the gate move's path);
      the phase's seconds;
+ 12. the ViT family and the ``gomoku7-reference`` preset (gomoku 7x7, ViT
+     512 x 1, patch 5, 8 heads, dropout 0.1, 100 sims, the reference PUCT
+     formula, the gate off): the sim kernels' whole search bitwise against
+     its plain version at B=256, S=100 (live, won and drawn roots,
+     Dirichlet, exact stub) and one step and one flush at A=49 with device
+     times and bounds; the ViT's plain forward on the card against the same
+     forward on the CPU (float32 and bf16, ``TOL_VIT``) with its device
+     time at B=256 and its bound; ``Trainer(preset("gomoku7-reference"))
+     .iterate(vanilla_eval=False)`` at full width, launch counts set to 0
+     before and measured per phase (az_sim_step 99 per move searched, the
+     dense kernels and the tower 0), collect env-steps/s, train seconds and
+     steps/s, and checks on every move it played (legal, the first in the
+     centre, a winner exactly where a line was completed) and on the
+     learner's dropout draws; one self-play move profiled (busy, idle, the
+     ViT forward's and az_sim_step's shares of busy time); then
+     ``expand_depth(2)`` on the card, one move on the deeper model, and a
+     trainer built from the workdir's config.json restoring its checkpoint
+     (the dropout generator included);
 then the main-path summaries, one JSON line of all eleven kernels (each
 with the games it was held at, the group kernels' geometry, the
 ``device_ms`` of the root, the tail and the move search's two ends (with
-the launch floor), and
-the gomoku9-dense path's launches, times and bounds under ``by_path``), the
-card line, and the device JSON.
+the launch floor), the eager dense forward's device time beside the dense
+kernel, the gomoku9-dense path's launches, times and bounds under
+``by_path``, and the sim kernels' gomoku7-reference launches and times),
+the card line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -194,11 +213,12 @@ KERNEL_FUNCS = {"resnet_tower_kernel": "az_resnet_tower",
                 "apply_kernel": "az_apply"}
 
 
-def device_profile(fn):
+def device_profile(fn, names=False):
     """Device time of every kernel that ``fn`` launches, by torch.profiler
     (CUPTI): ``({entry: (launches, total µs)}, busy µs, span µs)``, with
-    PyTorch's own kernels under "other"; None when the trace holds no
-    device events."""
+    PyTorch's own kernels under "other" (under their own names, cut to 60
+    characters, with ``names``); None when the trace holds no device
+    events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     # a failure of the profiler is reported and skipped, one of fn raises
@@ -228,7 +248,7 @@ def device_profile(fn):
     for e in kev:
         us = e.time_range.end - e.time_range.start
         tag = next((v for k, v in KERNEL_FUNCS.items() if k in e.name),
-                   "other")
+                   e.name[:60] if names else "other")
         n, t = per.get(tag, (0, 0.0))
         per[tag] = (n + 1, t + us)
     span = (max(e.time_range.end for e in kev)
@@ -879,6 +899,70 @@ def move_kernels_phase(env, mcfg, model, params, margs, noise, dev,
     return summary, err_b128
 
 
+def sim_search_bitwise(pname, B, gen, dev):
+    """The per-simulation engine's whole search on the card against its
+    plain version, bit for bit, at preset ``pname``'s game and search with
+    B games: the exact stub evaluator, Dirichlet noise fed to both, live
+    roots, a drawn one (not tictactoe) and, at gomoku, won ones (put in by
+    hand: random play rarely completes a line of five).  Fails on a
+    difference; returns the largest difference (0)."""
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
+    pc = preset(pname)
+    env, mcfg = make_env(pc.env), pc.mcts
+    S, A = mcfg.num_simulations, env.action_dim
+    st = random_positions(env, B, gen, dev)
+    if env.name != "tictactoe":
+        st = with_drawn_game(st, env)
+    if env.name.startswith("gomoku"):
+        st = won_roots(env, st, slice(B // 2, B // 2 + min(8, B // 4)))
+    roots = (st.board, st.current_player, st.move_count, st.done)
+    won = st.done & (st.winner >= 0)
+    drawn = st.done & (st.winner < 0)
+    noise = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen,
+                                  dev)[0].T.contiguous()
+    stub = exact_stub_evaluator(env)
+    ev = lambda o: stub(o.reshape(o.shape[0], -1))  # noqa: E731
+    t0 = time.perf_counter()
+    got = sim.run_mcts_sim(env, ev, *roots, mcfg, noise=noise, device=dev)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = sim.sim_search_reference(env, ev, *roots, mcfg, noise=noise)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    fields = ("visit_counts", "policy", "root_q")
+    bad = [k for k in fields
+           if not torch.equal(getattr(got, k), getattr(want, k))]
+    err = max(max_diff(getattr(got, k), getattr(want, k)) for k in fields)
+    sums = got.visit_counts.sum(-1)
+    log(f"[sim search] {pname} B={B} S={S} {mcfg.formula} formula, "
+        f"Dirichlet, exact stub, {int((~st.done).sum())} live / "
+        f"{int(won.sum())} won / {int(drawn.sum())} drawn roots: mismatched "
+        f"{bad or 'none'}; kernel search {t_kern:.2f} s, plain search "
+        f"{t_plain:.2f} s")
+    if bad:
+        fail(f"per-simulation kernels differ from the plain search in "
+             f"{bad} ({env.name})")
+    checks = {
+        "live roots count S-1 visits": bool((sums[~st.done]
+                                             == S - 1).all()),
+        "finished roots count none": bool((sums[st.done] == 0).all()),
+        "won roots: root Q (S-1)/S": bool(won.any()) and bool(
+            (got.root_q[won] == torch.tensor((S - 1) / S,
+                                             device=dev)).all()),
+        "drawn roots: root Q 0": bool(drawn.any()) and bool(
+            (got.root_q[drawn] == 0).all()),
+    }
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail(f"per-simulation search checks failed ({env.name})")
+    return err
+
+
 def sim_phase(gen, dev):
     """Phase 8: the per-simulation engine on the card against its plain
     version, bit for bit, at every batch the main path gives it;
@@ -890,7 +974,6 @@ def sim_phase(gen, dev):
                                             make_eval_fn)
     from alphazero_tpu_torch.search import fused, sim
     from alphazero_tpu_torch.search.mcts import expand_root, run_mcts
-    from alphazero_tpu_torch.search.stub import exact_stub_evaluator
     from alphazero_tpu_torch.search.tree import init_tree
 
     summary = {}
@@ -910,63 +993,12 @@ def sim_phase(gen, dev):
             f"{geo['ctas']} CTAs of {geo['threads_per_cta']} threads, "
             f"{geo['edges_per_lane']} edges a lane per walk step")
     # self-play's batch and the gate's (each agent's half), tictactoe, and
-    # gomoku9's self-play at its S=400 (won roots put in by hand: random
-    # play rarely completes a line of five)
+    # gomoku9's self-play at its S=400
     for pname, B in (("connect4-resnet", c4.train.selfplay_batch),
                      ("connect4-resnet", c4.train.gate_games // 2),
                      ("tictactoe", preset("tictactoe").train.selfplay_batch),
                      ("gomoku9", preset("gomoku9").train.selfplay_batch)):
-        pc = preset(pname)
-        env, mcfg = make_env(pc.env), pc.mcts
-        S, A = mcfg.num_simulations, env.action_dim
-        st = random_positions(env, B, gen, dev)
-        if env.name != "tictactoe":
-            st = with_drawn_game(st, env)
-        if env.name == "gomoku9":
-            st = won_roots(env, st, slice(B // 2, B // 2 + min(8, B // 4)))
-        roots = (st.board, st.current_player, st.move_count, st.done)
-        won = st.done & (st.winner >= 0)
-        drawn = st.done & (st.winner < 0)
-        noise = fused.dirichlet_noise(1, A, B, mcfg.dirichlet_alpha, gen,
-                                      dev)[0].T.contiguous()
-        stub = exact_stub_evaluator(env)
-        ev = lambda o, stub=stub: stub(o.reshape(o.shape[0], -1))  # noqa: E731
-        t0 = time.perf_counter()
-        got = sim.run_mcts_sim(env, ev, *roots, mcfg, noise=noise,
-                               device=dev)
-        torch.cuda.synchronize()
-        t_kern = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = sim.sim_search_reference(env, ev, *roots, mcfg, noise=noise)
-        torch.cuda.synchronize()
-        t_plain = time.perf_counter() - t0
-        fields = ("visit_counts", "policy", "root_q")
-        bad = [k for k in fields
-               if not torch.equal(getattr(got, k), getattr(want, k))]
-        search_err = max([search_err] + [
-            max_diff(getattr(got, k), getattr(want, k)) for k in fields])
-        sums = got.visit_counts.sum(-1)
-        log(f"[sim search] {pname} B={B} S={S} Dirichlet, exact stub, "
-            f"{int((~st.done).sum())} live / {int(won.sum())} won / "
-            f"{int(drawn.sum())} drawn roots: mismatched {bad or 'none'}; "
-            f"kernel search {t_kern:.2f} s, plain search {t_plain:.2f} s")
-        if bad:
-            fail(f"per-simulation kernels differ from the plain search in "
-                 f"{bad} ({env.name})")
-        checks = {
-            "live roots count S-1 visits": bool((sums[~st.done]
-                                                 == S - 1).all()),
-            "finished roots count none": bool((sums[st.done] == 0).all()),
-            "won roots: root Q (S-1)/S": bool(won.any()) and bool(
-                (got.root_q[won] == torch.tensor((S - 1) / S,
-                                                 device=dev)).all()),
-            "drawn roots: root Q 0": bool(drawn.any()) and bool(
-                (got.root_q[drawn] == 0).all()),
-        }
-        for name, ok in checks.items():
-            log(f"  [{'ok' if ok else 'FAIL'}] {name}")
-        if not all(checks.values()):
-            fail(f"per-simulation search checks failed ({env.name})")
+        search_err = max(search_err, sim_search_bitwise(pname, B, gen, dev))
 
     # az_sim_step / az_sim_flush on a snapshot of a real-weights
     # connect4-resnet search at slot S/2
@@ -2132,6 +2164,312 @@ def dense_games_phase(gen, dev):
     return out_, kern, total, split, chunk_us, gate_us
 
 
+# max |card - CPU| of the ViT's plain forward on logits and value: float32
+# (no TF32) differs by summation order only; bf16 rounds an activation near
+# a boundary the other way (the bf16 forward lies within 1.6e-2 of the
+# float32 one on the CPU at these widths)
+TOL_VIT = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def vit_forward_phase(env, cfg, gen, dev):
+    """The ViT's plain forward at the preset's widths and self-play batch:
+    on the card against the same forward on the CPU (float32 and bf16,
+    ``TOL_VIT``), its device time per call (``device_ms``, through
+    ``make_eval_fn``) and its bound.  Returns ``{dtype: summary}``."""
+    import dataclasses
+
+    from alphazero_tpu_torch.bench import _model_flops_per_pos
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    B = cfg.train.selfplay_batch
+    # the patch conv, the attention's projections and products and the MLP
+    # in the compute dtype; the heads on the CLS row in float32
+    mm = B * _model_flops_per_pos(cfg, env)
+    heads = 2.0 * B * cfg.model.embed_dim * (env.action_dim + 1)
+    obs = env.observation(random_positions(env, B, gen, dev))
+    out_ = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(cfg.model,
+                                                compute_dtype=dtype), env)
+        params = init_params(model, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            want = torch.func.functional_call(model, params, (obs.cpu(),))
+        model = model.to(dev)
+        params = {k: v.to(dev) for k, v in params.items()}
+        with torch.no_grad():
+            got = torch.func.functional_call(model, params, (obs,))
+        torch.cuda.synchronize()
+        err = max(float((a.float().cpu() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ok = (all(bool(torch.isfinite(a).all()) for a in got)
+              and err <= TOL_VIT[dtype])
+        ev = make_eval_fn(model, params)
+        # ≈ 55 launches a forward: 5 calls stay inside the launch queue
+        t = device_ms([("vit", lambda: ev(obs), 5)])["vit"]
+        reps = 10
+        prof = device_profile(lambda: [ev(obs) for _ in range(reps)],
+                              names=True)
+        if prof is not None:
+            per, busy, _ = prof
+            top = sorted(per.items(), key=lambda x: -x[1][1])[:8]
+            log(f"[vit forward] {dtype} profile of {reps} forwards: "
+                f"{sum(n for n, _ in per.values()) / reps:.0f} launches and "
+                f"{busy / reps / 1e3:.4f} ms device busy per forward; "
+                + "; ".join(f"{k}: {n // reps} x {us / n:.2f} us"
+                            for k, (n, us) in top))
+        wbytes = nbytes(*params.values())
+        if dtype == "bfloat16":
+            b_ms, b_by = bound(wbytes + nbytes(obs) + B * (env.action_dim
+                                                           + 1) * 4,
+                               bf16_ops=mm, f32_ops=heads)
+        else:
+            b_ms, b_by = bound(wbytes + nbytes(obs) + B * (env.action_dim
+                                                           + 1) * 4,
+                               f32_ops=mm + heads)
+        log(f"[vit forward] {env.name} B={B} E={model.embed_dim} depth "
+            f"{model.depth} patch {model.patch_size} heads "
+            f"{model.num_heads} {dtype}: card vs CPU max abs err {err:.3e} "
+            f"(tol {TOL_VIT[dtype]}) -> {'ok' if ok else 'FAIL'}; device "
+            f"{t} ms per call (make_eval_fn, device_ms), bound {b_ms:.5f} ms "
+            f"({b_by}; {(mm + heads) / 1e9:.2f} GFLOP, "
+            f"{wbytes / 1e6:.2f} MB weights)")
+        if not ok:
+            fail(f"the ViT's forward on the card disagrees with the CPU "
+                 f"({dtype})")
+        out_[dtype] = dict(
+            batch=B, max_abs_err=err, device_ms=t, bound_ms=b_ms,
+            bound_by=b_by, gflop=(mm + heads) / 1e9,
+            profiled_ms=None if prof is None else prof[1] / reps / 1e3,
+            launches=None if prof is None else sum(
+                n for n, _ in prof[0].values()) / reps)
+    return out_
+
+
+def vit_phase(gen, dev):
+    """Phase 12: the ViT family and the ``gomoku7-reference`` preset.  The
+    sim kernels at gomoku 7x7 (A=49) under the reference formula; the ViT's
+    forward; ``Trainer(preset("gomoku7-reference")).iterate(vanilla_eval=
+    False)`` at full width with launches per phase and checks on every
+    move it played; one self-play move profiled; ``expand_depth(2)`` on
+    the card with one move and a checkpoint round trip.  Returns (summary,
+    the sim kernels' step and flush at A=49, launch split, total, the
+    move's device ms per launch)."""
+    import shutil
+
+    from alphazero_tpu_torch.config import load_config, preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops import resnet_tower
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.training import Trainer, selfplay
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
+    t_phase = time.perf_counter()
+    pname = "gomoku7-reference"
+    cfg = preset(pname)
+    env = make_env(cfg.env)
+    mcfg = cfg.mcts
+    S, A, B = mcfg.num_simulations, env.action_dim, cfg.train.selfplay_batch
+    out_ = {"preset": pname, "batch": B, "num_simulations": S,
+            "formula": mcfg.formula}
+
+    # ---- a. the sim kernels at A=49 under the reference formula
+    geo = sim.sim_kernel_geometry(B, A)
+    log(f"[sim geometry] {pname} B={B} A={A}: {geo['lanes_per_game']} "
+        f"lanes per game, {geo['games_per_cta']} games per CTA, "
+        f"{geo['ctas']} CTAs, {geo['edges_per_lane']} edges a lane")
+    sim_search_bitwise(pname, B, gen, dev)
+    step, flush = sim_step_at(pname, B, gen, dev)
+
+    # ---- b. the ViT forward at the path's batch
+    out_["forward"] = vit_forward_phase(env, cfg, gen, dev)
+
+    # ---- c. the path: one outer iteration at full width
+    wd = Path(__file__).resolve().parent / "build" / "smoke_vit"
+    shutil.rmtree(wd, ignore_errors=True)
+    tr = Trainer(cfg, device="cuda", workdir=str(wd),
+                 logger=MetricsLogger(stdout=False))
+    log(f"[vit iterate] model {type(tr.model).__name__} embed "
+        f"{tr.model.embed_dim} depth {tr.model.depth} patch "
+        f"{tr.model.patch_size} heads {tr.model.num_heads} dropout "
+        f"{tr.model.dropout} {cfg.model.compute_dtype}, {S} sims "
+        f"({mcfg.formula}), B={B}, batch {cfg.train.batch_size}, gate "
+        f"{'on' if cfg.train.gate_enabled else 'off'}")
+    init = {k: v.clone() for k, v in tr.params_best.items()}
+    drop0 = tr.dropout_generator.get_state()
+    kernels = fused.KERNELS + sim.KERNELS + resnet_tower.KERNELS
+    split, moves = {}, []
+    counts = counted_phases(tr, ("collect", "train_epoch", "gate"), kernels,
+                            split)
+    real_step = selfplay.selfplay_step
+
+    def captured_step(env_, eval_fn, mcfg_, sp, buffer, **kw):
+        s, seen = sp.env_state, {}
+        rec = dict(obs=env_.observation(s).to(torch.int8), t=sp.t.clone(),
+                   player=s.current_player.clone())
+        real_env_step = env_.step
+
+        def spy(state, action):     # the move is the step's last env.step
+            new = real_env_step(state, action)
+            seen.update(action=action.clone(), done=new.done.clone(),
+                        winner=new.winner.clone())
+            return new
+
+        env_.step = spy
+        try:
+            res = real_step(env_, eval_fn, mcfg_, sp, buffer, **kw)
+        finally:
+            del env_.step
+        moves.append(dict(rec, **seen))
+        return res
+
+    selfplay.selfplay_step = captured_step
+    for k in kernels:
+        k.launches = 0
+    try:
+        it = tr.iterate(vanilla_eval=False)
+    finally:
+        selfplay.selfplay_step = real_step
+    total = counts()
+    M = cfg.train.selfplay_chunk_steps or 32
+    chunks = len(it["chunk_seconds"])
+    expect = {"collect": {"az_sim_step": len(moves) * (S - 1),
+                          "az_sim_flush": len(moves)},
+              "train_epoch": {}, "gate": {}}
+    log(f"[vit iterate] Trainer(preset('{pname}')).iterate(vanilla_eval="
+        f"False): launches {total}; measured per phase {split}")
+    for phase, want in expect.items():
+        full = {k.name: want.get(k.name, 0) for k in kernels}
+        if split.get(phase) != full:
+            fail(f"{pname} {phase} launches {split.get(phase)} != expected "
+                 f"{full} (the dense kernels and the tower must show 0)")
+    rate = M * B / statistics.median(it["chunk_seconds"])
+    steps_rate = it["steps"] / it["train_seconds"]
+    log(f"[vit iterate] collect {it['collect_seconds']:.3f} s ({chunks} "
+        f"chunks of {M} moves {it['chunk_seconds']}, {it['games']} games, "
+        f"{it['env_steps']} env-steps, {it['env_steps_per_s']:.1f} "
+        f"env-steps/s over collect, {rate:.1f} over the median chunk); "
+        f"train {it['train_seconds']:.3f} s ({it['steps']} steps of batch "
+        f"{cfg.train.batch_size}, {steps_rate:.1f} steps/s, loss "
+        f"{it['loss']:.4f}); gate {it['gate_seconds']:.6f} s (disabled, "
+        f"rate {it['gate_rate']}, accepted {it['accepted']})")
+    recs = {k: torch.stack([m[k] for m in moves]) for k in moves[0]}
+    checks = check_chunk_records(env, [recs])
+    size = int(tr.buffer.size)
+    lens = tr.buffer.length[:size].long()
+    rows = torch.arange(env.max_moves, device=dev)[None] < lens[:, None]
+    pol = tr.buffer.policy[:size]
+    counts_b = pol * (S - 1)
+    checks.update({
+        "a self-play search per move, M per chunk": len(moves) == chunks * M,
+        "buffer holds the finished games": size == min(
+            it["games"], tr.buffer.capacity) and size > 0,
+        "policies sum to 1": bool(((pol.sum(-1) - 1).abs()
+                                   <= 1e-6)[rows].all()),
+        "root counts sum to S-1": bool(
+            ((counts_b - counts_b.round()).abs() <= 1e-3)[rows].all()
+            and (counts_b.round().sum(-1) == S - 1)[rows].all()),
+        "train steps = buffer rows // batch": it["steps"] == max(
+            it["buffer_size"] // cfg.train.batch_size, 1),
+        "finite losses": all(math.isfinite(it[k]) for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+        "the learner drew dropout masks": not torch.equal(
+            tr.dropout_generator.get_state(), drop0),
+        "gate disabled: promoted": it["accepted"] and tr.version == 1
+        and all(torch.equal(tr.params_best[k], tr.params_new[k])
+                for k in init)
+        and not all(torch.equal(tr.params_best[k], init[k]) for k in init),
+        "the sim kernels launched": all(total[n] > 0 for n in (
+            "az_sim_step", "az_sim_flush")),
+    })
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail(f"{pname} iteration checks failed")
+
+    # ---- d. one self-play move (B games), profiled
+    ev = make_eval_fn(tr.model, tr.params_best)
+
+    def sp_move():
+        tr.sp, tr.buffer = selfplay.selfplay_step(env, ev, mcfg, tr.sp,
+                                                  tr.buffer)
+
+    sp_move()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp_move()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(sp_move)
+    dev_ms = print_profile(f"one {pname} self-play move (B={B}, S={S})",
+                           prof, wall)
+    move = dict(wall_ms=wall)
+    if prof is not None:
+        per, busy, _ = prof
+        # the forward's busy time as the profiler counts it (device_ms also
+        # counts the gaps between its ≈ 55 launches)
+        fwd = out_["forward"][cfg.model.compute_dtype]
+        fwd_ms = fwd["profiled_ms"] or fwd["device_ms"]
+        move.update(
+            busy_ms=busy / 1e3, idle_share=1 - busy / 1e3 / wall,
+            sim_step_share=per.get("az_sim_step", (0, 0.0))[1] / busy,
+            other_share=per.get("other", (0, 0.0))[1] / busy,
+            vit_share=(None if fwd_ms is None
+                       else S * fwd_ms * 1e3 / busy),
+            launches={k: n for k, (n, _) in per.items()})
+        log(f"[vit move] wall {wall:.1f} ms, device busy {busy / 1e3:.1f} "
+            f"ms, idle share {move['idle_share']:.3f}; az_sim_step "
+            f"{move['sim_step_share']:.1%} of busy time, PyTorch's kernels "
+            f"(the ViT forward, the root's expansion and the move) "
+            f"{move['other_share']:.1%}; the ViT forward (S x its profiled "
+            f"device time at B={B}, {fwd_ms} ms) "
+            + ("not measured" if fwd_ms is None
+               else f"{move['vit_share']:.1%}") + " of busy time")
+    # ---- e. depth surgery on the card: grow to 2 blocks, play a move,
+    # and restore the checkpoint (the dropout generator with it) into a
+    # trainer built from the workdir's config.json
+    before = {k: v.clone() for k, v in tr.params_best.items()}
+    tr.expand_depth(2)
+    n0 = sim.K_SIM_STEP.launches
+    tr.sp, tr.buffer = selfplay.selfplay_step(
+        env, make_eval_fn(tr.model, tr.params_best), mcfg, tr.sp, tr.buffer)
+    tr.save_checkpoint()
+    fresh = Trainer(load_config(str(wd)), device="cuda", workdir=str(wd),
+                    persist_config=False, logger=MetricsLogger(stdout=False))
+    checks = {
+        "expand_depth(2): two blocks on the card": tr.model.depth == 2
+        and all(v.device.type == dev.type for v in tr.params_best.values()),
+        "old parameters kept": all(torch.equal(tr.params_best[k], v)
+                                   for k, v in before.items()),
+        "one draw for both parameter sets": all(
+            torch.equal(tr.params_best[k], tr.params_new[k])
+            for k in tr.params_best),
+        "a move's search on the deeper model": sim.K_SIM_STEP.launches
+        == n0 + S - 1,
+        "config.json and the checkpoint restore the deeper model, the "
+        "dropout generator included": fresh.model.depth == 2
+            and fresh.restore_checkpoint() and torch.equal(
+                fresh.dropout_generator.get_state(),
+                tr.dropout_generator.get_state())
+            and all(torch.equal(fresh.params_best[k], tr.params_best[k])
+                    for k in tr.params_best),
+    }
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail(f"{pname} depth surgery checks failed")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{pname}] phase 12 took {seconds:.1f} s")
+    out_.update(env_steps_per_s=rate, train_steps_per_s=steps_rate,
+                chunk_seconds=it["chunk_seconds"], iterate={
+                    k: it[k] for k in ("collect_seconds", "train_seconds",
+                                       "gate_seconds", "steps", "games",
+                                       "env_steps", "env_steps_per_s",
+                                       "loss", "gate_rate", "accepted")},
+                launches_by_phase=split, selfplay_move=move,
+                phase_seconds=seconds)
+    return out_, step, flush, split, total, dev_ms
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2467,6 +2805,10 @@ def main():
     path11, kern11, total11, split11, chunk_us11, gate_us11 = \
         dense_games_phase(gen, dev)
 
+    # ---- 12. the ViT and the gomoku7-reference preset
+    path12, step12, flush12, split12, total12, move_ms12 = vit_phase(gen,
+                                                                     dev)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -2488,6 +2830,13 @@ def main():
             "games": ["connect4", "tictactoe", "gomoku9"],
             **{f: s[f] for f in ("geometry", "device_ms", "launch_floor_ms")
                if f in s},
+            **({"eager_forward_ms": {
+                f"connect4 B={Bx}": s["by_batch"][str(Bx)]["eager_device_ms"]
+                for Bx in (B, Bg)} | {
+                f"gomoku9-dense B={Bx}":
+                    path11["forward"]["gomoku9"][str(Bx)]["eager_device_ms"]
+                    for Bx in (path11["batch"], Bg)}}
+               if k.name == "az_dense_forward" else {}),
             "by_path": {"gomoku9-dense": {
                 "launches": total11[k.name],
                 "launches_collect": split11["collect"][k.name],
@@ -2513,8 +2862,15 @@ def main():
             "gate_ms": gate_ms9.get(k.name), "call_ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
-            "games": ["connect4", "tictactoe", "gomoku9", "gomoku15"],
-            "geometry": s["geometry"], "by_cell": s["by_cell"]})
+            "games": ["connect4", "tictactoe", "gomoku7", "gomoku9",
+                      "gomoku15"],
+            "geometry": s["geometry"], "by_cell": s["by_cell"] | {
+                "gomoku7-reference B=256": (step12 if k.name == "az_sim_step"
+                                            else flush12)},
+            "by_path": {"gomoku7-reference": {
+                "launches": total12[k.name],
+                "launches_collect": split12["collect"][k.name],
+                "ms": move_ms12.get(k.name)}}})
     s = summary10["az_resnet_tower"]
     kernels.append({
         "name": "az_resnet_tower", "route": "cuda",
@@ -2549,6 +2905,7 @@ def main():
         "gate_move_ms": gate_wall9}}))
     log(json.dumps({"fused_resnet_path": path10}))
     log(json.dumps({"gomoku9_dense_path": path11}))
+    log(json.dumps({"vit_path": path12}))
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

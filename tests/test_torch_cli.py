@@ -5,11 +5,16 @@
 * A tiny ``train --device cpu`` writes ``metrics.jsonl``, ``config.json``
   and a checkpoint; ``train --resume`` goes on from it (version 2) and
   ``eval --vs self`` prints its JSON line.
-* Flags of parts not yet ported exit non-zero naming their ROADMAP module.
+* ``train --model-family vit`` on a tiny ``gomoku7-reference`` run, then
+  ``train --resume --expand-depth 2``: the checkpoint and ``config.json``
+  hold the deeper ViT, and ``eval`` and ``play`` restore it from the
+  workdir.
+* Flags of parts not yet ported (module 12) exit non-zero naming their
+  ROADMAP module.
 * Scripted ``play`` against vanilla search ends in a result;
   ``parse_input`` reads cells and columns; ``agent_move`` plays a legal
-  move for a tictactoe ResNet and connect4 and tictactoe dense towers (the
-  whole-move search at B=1).
+  move for a tictactoe ResNet, connect4 and tictactoe dense towers (the
+  whole-move search at B=1) and a gomoku ViT.
 """
 
 import json
@@ -22,11 +27,16 @@ import torch
 from alphazero_tpu_torch import cli
 from alphazero_tpu_torch.config import MCTSConfig, ModelConfig
 from alphazero_tpu_torch.envs import make_env
+from alphazero_tpu_torch.eval import play as play_module
 from alphazero_tpu_torch.eval.play import (agent_move, parse_input,
                                            play_against_agent)
 from alphazero_tpu_torch.models import build_model, init_params, make_eval_fn
 from tests.test_torch_isolation import ROOT
 
+VIT = ["--preset", "gomoku7-reference", "--device", "cpu", "--sims", "4",
+       "--selfplay-batch", "4", "--games-per-iter", "4", "--batch-size",
+       "256", "--model-family", "vit", "--model-embed-dim", "16",
+       "--model-patch-size", "3", "--capacity", "784"]
 TINY = ["--preset", "tictactoe", "--device", "cpu", "--sims", "4",
         "--selfplay-batch", "4", "--games-per-iter", "4", "--gate-games", "4",
         "--batch-size", "64", "--model-channels", "8", "--model-blocks", "1",
@@ -79,11 +89,69 @@ def test_train_resume_eval(tmp_path, capsys):
     assert sum(line["score"][:2]) == 4
 
 
+@pytest.fixture(scope="module")
+def vit_run(tmp_path_factory):
+    """A ViT run: one iteration, then one more after ``--resume
+    --expand-depth 2``; returns the workdir and the second trainer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    wd = str(tmp_path_factory.mktemp("vit") / "run")
+    try:
+        tr = cli.main(["train", *VIT, "--iterations", "1", "--workdir", wd])
+        assert tr.version == 1 and tr.model.depth == 1
+        tr2 = cli.main(["train", *VIT, "--iterations", "1", "--resume",
+                        "--expand-depth", "2", "--workdir", wd])
+    finally:
+        torch.set_num_threads(n)
+    return wd, tr2
+
+
+def test_vit_train_then_expand_depth_on_resume(vit_run):
+    wd, tr = vit_run
+    assert (tr.version, tr.outer_iter) == (2, 2)
+    assert type(tr.model).__name__ == "ViT" and tr.model.depth == 2
+    assert any(k.startswith("block_1.") for k in tr.params_best)
+    cfg = json.loads(open(f"{wd}/config.json").read())["model"]
+    assert (cfg["family"], cfg["depth"], cfg["embed_dim"]) == ("vit", 2, 16)
+    state = torch.load(f"{wd}/checkpoints/2/state.pt", weights_only=False)
+    assert "block_1.mlp_fc1.weight" in state["params_best"]
+    assert "dropout_generator" in state
+
+
+def test_eval_restores_the_expanded_vit(vit_run, capsys):
+    wd, _ = vit_run
+    capsys.readouterr()
+    res = cli.main(["eval", "--preset", "gomoku7-reference", "--device",
+                    "cpu", "--workdir", wd, "--vs", "self", "--games", "2"])
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    assert line == res and sum(line["score"][:2]) == 2
+    assert "loaded version 2" in out.err
+
+
+def test_play_restores_the_expanded_vit(vit_run, monkeypatch):
+    """``play`` builds its agent from the workdir's ViT: its evaluator
+    equals the trained parameters' on a position."""
+    wd, tr = vit_run
+    seen = {}
+
+    def fake_play(env, eval_fn, mcts_cfg, human_turn, device):
+        seen.update(env=env, eval_fn=eval_fn)
+
+    monkeypatch.setattr(play_module, "play_against_agent", fake_play)
+    cli.main(["play", "--preset", "gomoku7-reference", "--device", "cpu",
+              "--workdir", wd])
+    env = seen["env"]
+    state = env.step(env.init(1), torch.tensor([24], dtype=torch.int32))
+    obs = env.observation(state)
+    p, v = seen["eval_fn"](obs)
+    wp, wv = make_eval_fn(tr.model, tr.params_best)(obs)
+    assert torch.equal(p, wp) and torch.equal(v, wv)
+
+
 @pytest.mark.parametrize("flags,module", [
     (["--mesh", "data=2"], "module 12"),
     (["--num-processes", "2"], "module 12"),
-    (["--expand-depth", "2"], "module 11"),
-    (["--model-family", "vit"], "module 11"),
 ])
 def test_unported_flags_exit_naming_their_module(flags, module):
     with pytest.raises(SystemExit) as e:
@@ -118,11 +186,13 @@ def test_play_against_vanilla_scripted():
 
 @pytest.mark.parametrize("game,family", [("tictactoe", "resnet"),
                                          ("connect4", "dense"),
-                                         ("tictactoe", "dense")])
+                                         ("tictactoe", "dense"),
+                                         ("gomoku", "vit")])
 def test_agent_move_is_legal(game, family):
     env = make_env(game)
     model = build_model(ModelConfig(family=family, channels=8, width=64,
-                                    blocks=1), env)
+                                    blocks=1, embed_dim=16, num_heads=4,
+                                    patch_size=3), env)
     params = init_params(model, torch.Generator().manual_seed(0))
     state = env.init(1)
     state = env.step(state, torch.tensor([0], dtype=torch.int32))

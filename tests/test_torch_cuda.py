@@ -272,7 +272,7 @@ def _sim_positions(env, B, seed, dev):
 
 @pytest.mark.parametrize("name,dirichlet,formula", [
     ("connect4", True, "reference"), ("tictactoe", False, "alphazero"),
-    ("gomoku9", True, "reference")])
+    ("gomoku9", True, "reference"), ("gomoku", True, "reference")])
 def test_sim_search_kernels_bitwise_vs_plain(dev, name, dirichlet, formula):
     """The per-simulation engine: az_sim_step × (S-1) and az_sim_flush
     against their plain versions, with finished roots present."""
@@ -1314,3 +1314,24 @@ def test_move_root_init_one_launch_bitwise(dev, game, B):
             assert torch.equal(getattr(tk, f), getattr(tp, f)), (S, f)
         check_dirty_init(tp, tree, prior, value, live)
     assert fused.K_MOVE_ROOT_INIT.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_vit_forward_on_the_card_close_to_cpu(dev, dtype, tol):
+    """The ViT's plain forward (gomoku 7×7, embedding 512, patch 5, 8
+    heads, the preset's widths) on the card against the same forward on
+    the CPU: float32 (no TF32) within 1e-4, bf16 (another summation order)
+    within 5e-2 on logits and value."""
+    env = make_env("gomoku")
+    model = build_model(ModelConfig(family="vit", embed_dim=512, patch_size=5,
+                                    num_heads=8, depth=1,
+                                    compute_dtype=dtype), env)
+    params = init_params(model, torch.Generator().manual_seed(0))
+    boards, players = _positions(env, 64, 2, torch.device("cpu"))
+    obs = env.observation_from_board(boards, players)
+    want = torch.func.functional_call(model, params, (obs,))
+    model_d = model.to(dev)
+    got = torch.func.functional_call(
+        model_d, {k: v.to(dev) for k, v in params.items()}, (obs.to(dev),))
+    for a, b in zip(got, want):
+        assert float((a.float().cpu() - b.float()).abs().max()) <= tol

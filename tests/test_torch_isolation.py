@@ -52,7 +52,8 @@ def test_sources_never_name_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["trainer", "chunk", "buffer", "selfplay",
                                    "move_search", "compare", "symmetries",
-                                   "resnet_trainer", "sim_search",
+                                   "resnet_trainer", "vit_trainer",
+                                   "sim_search",
                                    "xla_search", "vanilla_search",
                                    "leaf_batch_search", "cli_train",
                                    "cli_eval", "play", "bench"])
@@ -89,6 +90,7 @@ def test_entry_points_raise_without_cuda(entry):
         "compare": lambda: compare(env, Agent(), Agent(), 2),
         "symmetries": lambda: Symmetries(env),
         "resnet_trainer": lambda: Trainer(tcfg.preset("connect4-resnet")),
+        "vit_trainer": lambda: Trainer(tcfg.preset("gomoku7-reference")),
         "sim_search": lambda: run_mcts_sim(env, lambda obs: None, *roots,
                                            tcfg.MCTSConfig(num_simulations=4)),
         "xla_search": lambda: run_mcts_xla(env, lambda obs: None, *roots,
