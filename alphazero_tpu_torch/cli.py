@@ -13,8 +13,11 @@ flags, so that one command line does the same in both packages:
 adds ``--device`` (default ``cuda``; ``--device cpu`` runs the plain
 PyTorch path on the CPU, the port's counterpart of ``JAX_PLATFORMS=cpu``).
 ``train --expand-depth N`` grows a ViT's depth after ``--resume``, as in
-the JAX package.  Flags of parts not yet ported (multi-process training)
-exit non-zero naming their ROADMAP module.
+the JAX package.  ``train --mesh data=N[,model=M]`` trains over N·M ranks
+(``training/spmd_loop.py``): with ``--coordinator host:port
+--num-processes P --process-id i`` (or torchrun's environment) this
+process is one rank; without, it starts all N·M ranks on this host
+(``parallel/distributed.py:launch``).
 """
 
 from __future__ import annotations
@@ -25,19 +28,21 @@ import json
 import os
 import sys
 
-UNPORTED = {
-    "mesh": "module 12 (multi-process training)",
-    "coordinator": "module 12 (multi-process training)",
-    "num_processes": "module 12 (multi-process training)",
-    "process_id": "module 12 (multi-process training)",
-}
 
-
-def _refuse_unported(args):
-    for flag, module in UNPORTED.items():
-        if getattr(args, flag, None) is not None:
-            sys.exit(f"--{flag.replace('_', '-')} is not ported yet: it is "
-                     f"{module} of ROADMAP.md")
+def _parse_mesh(spec: str):
+    """'data=8' / 'data=4,model=2' → (n_data, n_model)."""
+    n = {"data": None, "model": 1}
+    seen = set()
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        if k not in n or k in seen or not v.isdigit() or int(v) < 1:
+            raise SystemExit(f"bad --mesh spec {spec!r}; "
+                             "expected data=N[,model=M] with N,M >= 1")
+        seen.add(k)
+        n[k] = int(v)
+    if n["data"] is None:
+        raise SystemExit(f"bad --mesh spec {spec!r}: 'data=N' is required")
+    return n["data"], n["model"]
 
 
 def _apply_overrides(cfg, args):
@@ -91,18 +96,50 @@ def _run_cfg(cfg, workdir):
 
 
 def cmd_train(args):
+    if not args.mesh:
+        return _train(args, None)
+    from alphazero_tpu_torch.parallel import distributed
+
+    shape = _parse_mesh(args.mesh)
+    if not distributed.initialize(args.coordinator, args.num_processes,
+                                  args.process_id, args.device):
+        distributed.launch(_train, shape[0] * shape[1], args, shape,
+                           device=args.device)
+        return None
+    try:
+        return _train(args, shape)
+    finally:
+        distributed.destroy()
+
+
+def _train(args, mesh_shape):
+    """The train command in this process: a ``Trainer``, or with
+    ``mesh_shape = (n_data, n_model)`` this rank's ``SpmdTrainer`` (rank 0
+    alone logs, profiles and writes the workdir's files)."""
     from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.training.loop import Trainer
     from alphazero_tpu_torch.utils.metrics import MetricsLogger
     from alphazero_tpu_torch.utils.profiling import trace
 
-    _refuse_unported(args)
     cfg = _apply_overrides(preset(args.preset), args)
+    rank0 = True
+    if mesh_shape:
+        from alphazero_tpu_torch.parallel.mesh import make_mesh
+        from alphazero_tpu_torch.training.spmd_loop import SpmdTrainer
+        mesh = make_mesh(*mesh_shape)
+        rank0 = mesh.rank == 0
     logger = MetricsLogger(path=f"{args.workdir}/metrics.jsonl"
-                           if args.workdir else None)
-    tr = Trainer(cfg, device=args.device, workdir=args.workdir,
-                 logger=logger, display=args.display,
-                 fused_resnet=args.fused_resnet)
+                           if args.workdir and rank0 else None, stdout=rank0)
+    if mesh_shape:
+        tr = SpmdTrainer(cfg, mesh, workdir=args.workdir, logger=logger,
+                         display=args.display,
+                         fused_resnet=args.fused_resnet)
+        if rank0:
+            print(f"mesh: {mesh.shape}", file=sys.stderr)
+    else:
+        tr = Trainer(cfg, device=args.device, workdir=args.workdir,
+                     logger=logger, display=args.display,
+                     fused_resnet=args.fused_resnet)
     if args.load_buffer:
         n = tr.import_buffer(args.load_buffer, step=args.load_buffer_step)
         print(f"imported {n} buffer rows from {args.load_buffer}",
@@ -112,7 +149,7 @@ def cmd_train(args):
     if args.expand_depth:
         tr.expand_depth(args.expand_depth)
         print(f"expanded ViT depth to {args.expand_depth}", file=sys.stderr)
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if rank0 else None):
         _run_train(tr, args)
     logger.close()
     return tr
@@ -121,7 +158,7 @@ def cmd_train(args):
 def _run_train(tr, args):
     if args.train_only:
         # SGD on the checkpointed buffer only, no self-play
-        if int(tr.buffer.size) == 0:
+        if tr._buffer_rows() == 0:
             print("train-only requires a checkpoint with a non-empty "
                   "replay buffer", file=sys.stderr)
             sys.exit(1)
@@ -241,9 +278,10 @@ def _parser():
                    help="grow the ViT's depth (after --resume), keeping "
                         "its trained blocks")
     t.add_argument("--mesh", default=None,
-                   help="train over a device mesh (module 12, not ported)")
+                   help="train over N·M ranks: data=N[,model=M]")
     t.add_argument("--coordinator", default=None,
-                   help="multi-process coordinator (module 12, not ported)")
+                   help="host:port of rank 0 when each rank is started "
+                        "on its own (with --num-processes, --process-id)")
     t.add_argument("--num-processes", type=int, default=None)
     t.add_argument("--process-id", type=int, default=None)
     t.add_argument("--selfplay-batch", type=int, default=None,

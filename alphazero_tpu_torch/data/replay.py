@@ -4,8 +4,17 @@ Counterpart of the JAX package's ``data/replay.py``: a finished game's
 trajectory slab (observations and root policies of up to ``L =
 env.max_moves`` moves, its length and winner) is written as one block of a
 ring.  Sampling draws a game ∝ its length, a move in it and a symmetry, and
-rebuilds the value target from the winner and the move's parity.  The
-sharded multi-ring layout is module 12 of ROADMAP.md.
+rebuilds the value target from the winner and the move's parity.
+
+Under a mesh (``parallel/``) every data rank keeps a ring of its own, of
+``G // N`` blocks (``G = capacity // L``, N data ranks), and writes and
+samples only that ring.  The JAX package stacks those rings into one
+sharded buffer, ``(N, G // N, ...)`` arrays with ``(N,)`` cursors and sizes:
+:func:`create_sharded` and :func:`to_sharded` build that layout as JAX
+does, :func:`create_ring` makes one rank's ring alone, :func:`shard_of`
+takes one rank's ring out of the layout and
+:func:`stack_shards` puts the rings back together (for checkpoints and
+``--load-buffer``).
 """
 
 from __future__ import annotations
@@ -52,6 +61,70 @@ def create(env, capacity: int, device="cuda") -> ReplayBuffer:
         cursor=torch.zeros((), dtype=torch.int32, **z),
         size=torch.zeros((), dtype=torch.int32, **z),
     )
+
+
+def _fields(buf: ReplayBuffer) -> dict:
+    return {f.name: getattr(buf, f.name) for f in dataclasses.fields(buf)}
+
+
+def create_ring(env, capacity: int, num_shards: int,
+                device="cuda") -> ReplayBuffer:
+    """One data rank's empty ring: ``G // num_shards`` of the ``G =
+    capacity // L`` blocks, the ring :func:`to_sharded` gives each rank of
+    an empty flat buffer (the blocks that do not divide are dropped)."""
+    G = max(capacity // env.max_moves, 1)
+    if G < num_shards:
+        raise ValueError(f"{G} blocks cannot make {num_shards} rings")
+    return create(env, G // num_shards * env.max_moves, device)
+
+
+def create_sharded(env, capacity: int, num_shards: int,
+                   device="cuda") -> ReplayBuffer:
+    """``num_shards`` empty rings stacked: the JAX package's sharded
+    layout.  The block count ``capacity // L`` must divide over them."""
+    if max(capacity // env.max_moves, 1) % num_shards:
+        raise ValueError(f"{capacity // env.max_moves} blocks do not divide "
+                         f"over {num_shards} rings")
+    return stack_shards([create_ring(env, capacity, num_shards, device)
+                         for _ in range(num_shards)])
+
+
+def to_sharded(buf: ReplayBuffer, num_shards: int) -> ReplayBuffer:
+    """A flat buffer re-laid out as ``num_shards`` rings, contiguous blocks
+    each; the last ``G % num_shards`` blocks are dropped.  Ring ``i`` holds
+    ``clip(min(size, Gs·S) - i·Gs, 0, Gs)`` blocks with its cursor at that
+    count modulo ``Gs``, the JAX package's arithmetic (a wrapped ring's age
+    order is not rebuilt: uniform sampling does not see it)."""
+    if buf.cursor.dim() == 1:
+        if buf.cursor.shape[0] != num_shards:
+            raise ValueError(f"buffer has {buf.cursor.shape[0]} rings, "
+                             f"not {num_shards}")
+        return buf
+    S, G = num_shards, buf.capacity
+    Gs = G // S
+    if Gs == 0:
+        raise ValueError(f"{G} blocks cannot make {S} rings")
+    dev = buf.size.device
+    sizes = torch.clamp(torch.minimum(buf.size.long(),
+                                      torch.tensor(Gs * S, device=dev))
+                        - torch.arange(S, device=dev) * Gs, 0, Gs)
+    blocks = {k: v[:Gs * S].reshape((S, Gs) + v.shape[1:])
+              for k, v in _fields(buf).items() if v.dim() > 0}
+    return ReplayBuffer(**blocks, cursor=(sizes % Gs).to(torch.int32),
+                        size=sizes.to(torch.int32))
+
+
+def shard_of(buf: ReplayBuffer, index: int) -> ReplayBuffer:
+    """Ring ``index`` of a sharded buffer, as a flat buffer of its own
+    (a copy)."""
+    return ReplayBuffer(**{k: v[index].clone()
+                           for k, v in _fields(buf).items()})
+
+
+def stack_shards(rings) -> ReplayBuffer:
+    """Flat rings of one capacity, stacked into the sharded layout."""
+    return ReplayBuffer(**{k: torch.stack([_fields(r)[k] for r in rings])
+                           for k in _fields(rings[0])})
 
 
 def add_games(buf: ReplayBuffer, obs_slab, policy_slab, length, winner,

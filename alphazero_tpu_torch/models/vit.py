@@ -80,17 +80,24 @@ class Attention(nn.Module):
 
     def forward(self, x, dtype, generator=None):
         B, T, E = x.shape
-        H = self.num_heads
-        Dh = E // H
-        q, k, v = (_linear(x, getattr(self, n), dtype).reshape(B, T, H, Dh)
-                   for n in ("query", "key", "value"))
-        q = q / torch.tensor(math.sqrt(Dh), dtype=dtype)
-        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        if generator is not None and self.dropout > 0.0:
-            keep = _keep_mask((T, T), self.dropout, generator, x.device)
-            w = w * (keep.to(dtype) / _keep_rate(self.dropout, dtype))
-        y = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, T, E)
-        return _linear(y, self.out, dtype)
+        y = _attend(self, x, E // self.num_heads, dtype, generator)
+        return _linear(y.reshape(B, T, E), self.out, dtype)
+
+
+def _attend(attn, x, head_dim, dtype, generator):
+    """Flax's attention core over the heads of ``attn``'s query, key and
+    value projections of ``x (B, T, E)`` → ``(B, T, heads, head_dim)``:
+    the query scaled by √Dh first, the softmax in ``dtype``, one ``(T, T)``
+    dropout mask for every game and head."""
+    B, T = x.shape[:2]
+    q, k, v = (_linear(x, getattr(attn, n), dtype).reshape(B, T, -1, head_dim)
+               for n in ("query", "key", "value"))
+    q = q / torch.tensor(math.sqrt(head_dim), dtype=dtype)
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+    if generator is not None and attn.dropout > 0.0:
+        keep = _keep_mask((T, T), attn.dropout, generator, x.device)
+        w = w * (keep.to(dtype) / _keep_rate(attn.dropout, dtype))
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 class AttentionBlock(nn.Module):

@@ -11,6 +11,14 @@ and the ResNet have no dropout and ignore it.  Adam is created fresh for
 every epoch; ``torch.optim.Adam``'s defaults (β 0.9/0.999, eps 1e-8) are
 optax's.  Float32 matrix products stay full float32 (PyTorch's default; no
 TF32).
+
+Under a mesh (``parallel/``) each data rank draws ``batch_size / n_data``
+rows from its own ring; after ``backward()`` the gradients and the step's
+metrics, flattened into one buffer, are averaged over the data group, so
+every rank takes the same Adam step.  A model split over ranks (the
+tensor-parallel ViT) differentiates the L2 of its own slices; its
+``l2_elsewhere`` gives the L2 of the slices the other ranks hold, which
+the step adds to the ``l2`` and ``loss`` it reports.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from torch.func import functional_call
 from alphazero_tpu_torch.config import TrainConfig
 from alphazero_tpu_torch.data.replay import ReplayBuffer, sample
 from alphazero_tpu_torch.models.vit import ViT
+from alphazero_tpu_torch.parallel.distributed import all_reduce
 
 
 class TrainMetrics(NamedTuple):
@@ -62,38 +71,85 @@ def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.Adam:
     return torch.optim.Adam(list(params.values()), lr=cfg.learning_rate)
 
 
+def _mesh_mean(model, params: dict, metrics: TrainMetrics, l2_coeff: float,
+               mesh) -> TrainMetrics:
+    """The whole model's L2 in the metrics, then the gradients and the
+    metrics averaged over the data group, in one all-reduce of one flat
+    buffer."""
+    elsewhere = getattr(model, "l2_elsewhere", None)
+    if elsewhere is not None:
+        rest = elsewhere(params)
+        metrics = metrics._replace(loss=metrics.loss + l2_coeff * rest,
+                                   l2=metrics.l2 + rest)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params.values()]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack([m.detach() for m in metrics])])
+    flat = all_reduce(flat, mesh.data_group) / mesh.n_data
+    i = 0
+    for p, g in zip(params.values(), grads):
+        p.grad = flat[i:i + g.numel()].view_as(g)
+        i += g.numel()
+    return TrainMetrics(*flat[i:])
+
+
 def train_step(model, params: dict, opt, obs, policy_target, value_target,
-               l2_coeff: float, dropout_generator=None) -> TrainMetrics:
+               l2_coeff: float, dropout_generator=None,
+               mesh=None) -> TrainMetrics:
     """One Adam step on one batch; ``params`` are leaf tensors that require
-    grad and that ``opt`` updates in place."""
+    grad and that ``opt`` updates in place.  With a mesh the batch is this
+    rank's share and the step the data group's mean."""
     opt.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(model, params, obs, policy_target, value_target,
                             l2_coeff, dropout_generator)
     loss.backward()
+    if mesh is not None:
+        metrics = _mesh_mean(model, params, metrics, l2_coeff, mesh)
     opt.step()
     return TrainMetrics(*(m.detach() for m in metrics))
 
 
+def train_chunk(model, params: dict, opt, buffer: ReplayBuffer,
+                cfg: TrainConfig, steps: int, *, generator,
+                dropout_generator=None, syms=None, augment_skip: int = 0,
+                mesh=None) -> TrainMetrics:
+    """``steps`` Adam steps of ``opt`` on ``params`` (leaf tensors it
+    updates in place), each on a new replay sample of ``batch_size`` rows
+    (a data rank's share under a mesh) drawn from ``generator``, with the
+    dropout masks drawn from ``dropout_generator``.  Returns the metrics
+    averaged over the steps."""
+    rows = cfg.batch_size // (mesh.n_data if mesh is not None else 1)
+    out = []
+    for _ in range(steps):
+        obs, pol, val = sample(buffer, rows, generator=generator, syms=syms,
+                               augment_skip=augment_skip)
+        out.append(train_step(model, params, opt, obs, pol, val,
+                              cfg.l2_coeff, dropout_generator, mesh))
+    return TrainMetrics(*(torch.stack(m).mean() for m in zip(*out)))
+
+
+def leaf_copies(params: dict) -> dict:
+    """Copies of ``params`` that require grad, for an optimizer to own."""
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in params.items()}
+
+
 def train_epoch(model, params: dict, buffer: ReplayBuffer, cfg: TrainConfig,
                 steps: int, *, generator, dropout_generator=None, syms=None,
-                augment_skip: int = 0, chunk_steps: int = 32):
-    """Exactly ``steps`` Adam steps from a fresh optimizer, each on a new
-    replay sample drawn from ``generator``, with the dropout masks drawn
-    from ``dropout_generator`` (on the parameters' device; None trains
-    without dropout).  Returns the new parameters (``params`` is left as it
-    was) and the metrics averaged over the last chunk of ≤ ``chunk_steps``
-    steps, which is what the JAX trainer reports (its epochs run as jitted
-    chunks of 32 steps and it keeps the last chunk's mean)."""
-    ps = {k: v.detach().clone().requires_grad_(True)
-          for k, v in params.items()}
+                augment_skip: int = 0, chunk_steps: int = 32, mesh=None):
+    """Exactly ``steps`` Adam steps from a fresh optimizer, in chunks of
+    :func:`train_chunk` (on the parameters' device; a None
+    ``dropout_generator`` trains without dropout).  Returns the new
+    parameters (``params`` is left as it was) and the metrics averaged over
+    the last chunk of ≤ ``chunk_steps`` steps, which is what the JAX
+    trainer reports (its epochs run as jitted chunks of 32 steps and it
+    keeps the last chunk's mean)."""
+    ps = leaf_copies(params)
     opt = make_optimizer(cfg, ps)
-    chunk = []
-    for i in range(steps):
-        if i % chunk_steps == 0:
-            chunk = []
-        obs, pol, val = sample(buffer, cfg.batch_size, generator=generator,
-                               syms=syms, augment_skip=augment_skip)
-        chunk.append(train_step(model, ps, opt, obs, pol, val, cfg.l2_coeff,
-                                dropout_generator))
-    metrics = TrainMetrics(*(torch.stack(m).mean() for m in zip(*chunk)))
+    for done in range(0, steps, chunk_steps):
+        metrics = train_chunk(model, ps, opt, buffer, cfg,
+                              min(chunk_steps, steps - done),
+                              generator=generator,
+                              dropout_generator=dropout_generator, syms=syms,
+                              augment_skip=augment_skip, mesh=mesh)
     return {k: v.detach() for k, v in ps.items()}, metrics

@@ -61,6 +61,9 @@ class Trainer:
     commands) leaves ``workdir/config.json`` alone; ``fused_resnet`` is the
     fused tower opt-in for self-play, the gate and the vanilla match."""
 
+    # the ranks' mesh of a run over several (training/spmd_loop.py)
+    mesh = None
+
     def __init__(self, cfg: Config, device="cuda",
                  workdir: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None,
@@ -75,12 +78,10 @@ class Trainer:
         self.model = build_model(cfg.model, self.env).to(self.device)
         gen = torch.Generator().manual_seed(cfg.train.seed)
         # best ("older") generates data; the contender ("newer") trains
-        self.params_best = {k: v.to(self.device)
-                            for k, v in init_params(self.model, gen).items()}
+        self.params_best, self.sp, self.buffer = self._initial_state(
+            {k: v.to(self.device)
+             for k, v in init_params(self.model, gen).items()})
         self.params_new = _copy(self.params_best)
-        self.buffer = create(self.env, cfg.replay.capacity, self.device)
-        self.sp = init_selfplay(self.env, cfg.train.selfplay_batch,
-                                cfg.train.seed + 1, self.device)
         # draws of the learner's samples and of the gate's matches
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.train.seed + 2)
@@ -95,14 +96,25 @@ class Trainer:
         self._syms = Symmetries(self.env, self.device)
         self._chunk_steps = (cfg.train.selfplay_chunk_steps
                              or SELFPLAY_CHUNK_STEPS)
-        self._runner = make_selfplay_runner(self.env, self.model, cfg.mcts,
-                                            cfg.replay, self._chunk_steps,
-                                            fused_resnet)
+        self._runner = self._make_runner()
         self._ckpt = (CheckpointManager(f"{workdir}/checkpoints")
                       if workdir else None)
         self._config_dir = workdir if persist_config else None
         if self._config_dir:
             save_config(cfg, self._config_dir)
+
+    def _initial_state(self, params: dict):
+        """The run's starting parameters, self-play games and ring."""
+        cfg = self.cfg
+        return (params, init_selfplay(self.env, cfg.train.selfplay_batch,
+                                      cfg.train.seed + 1, self.device),
+                create(self.env, cfg.replay.capacity, self.device))
+
+    def _make_runner(self):
+        """The actor phase's program: ``run(params, sp, buffer)``."""
+        return make_selfplay_runner(self.env, self.model, self.cfg.mcts,
+                                    self.cfg.replay, self._chunk_steps,
+                                    self.fused_resnet)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -132,9 +144,7 @@ class Trainer:
             self._sync()
             chunk_seconds.append(time.perf_counter() - tc)
             if self.display:
-                s = self.sp.env_state
-                print(f"[game 0, move {int(s.move_count[0])}]\n"
-                      f"{self.env.render(s, 0)}", flush=True)
+                self._show_game0()
             elif int(done_prev) - start_games >= games_target:
                 break
         dt = time.perf_counter() - t0
@@ -152,6 +162,11 @@ class Trainer:
         self.log.log("collect", **m)
         return m
 
+    def _show_game0(self):
+        s = self.sp.env_state
+        print(f"[game 0, move {int(s.move_count[0])}]\n"
+              f"{self.env.render(s, 0)}", flush=True)
+
     def _buffer_rows(self) -> int:
         """Buffer occupancy in augmented rows (symmetry orbits counted)."""
         n_syms = self._syms.num if self.cfg.replay.augment else 1
@@ -163,23 +178,32 @@ class Trainer:
         unless ``train_steps_per_iter`` is set, from a fresh Adam state.
         The losses reported are the last chunk's mean, as the JAX trainer
         reports them."""
-        t = self.cfg.train
-        steps = max(self._buffer_rows() // t.batch_size, 1)
-        if t.train_steps_per_iter is not None:
-            steps = t.train_steps_per_iter
+        steps = self._epoch_steps()
         t0 = time.perf_counter()
         self.params_new, metrics = learner.train_epoch(
-            self.model, self.params_new, self.buffer, t, steps,
-            generator=self.generator,
+            self._learner_net(), self.params_new, self.buffer, self.cfg.train,
+            steps, generator=self.generator,
             dropout_generator=self.dropout_generator,
             syms=self._syms if self.cfg.replay.augment else None,
             augment_skip=self.cfg.replay.augment_skip_moves,
-            chunk_steps=TRAIN_CHUNK_STEPS)
-        m = {"steps": steps,
+            chunk_steps=TRAIN_CHUNK_STEPS, mesh=self.mesh)
+        return self._log_train(steps, metrics, t0)
+
+    def _learner_net(self):
+        return self.model
+
+    def _log_train(self, steps: int, metrics, t0: float, **flags) -> dict:
+        m = {"steps": steps, **flags,
              **{k: float(v) for k, v in metrics._asdict().items()},
              "seconds": time.perf_counter() - t0}
         self.log.log("train", **m)
         return m
+
+    def _epoch_steps(self) -> int:
+        t = self.cfg.train
+        if t.train_steps_per_iter is not None:
+            return t.train_steps_per_iter
+        return max(self._buffer_rows() // t.batch_size, 1)
 
     def gate(self) -> float:
         """Contender-vs-best arena of ``gate_games`` games with visit
@@ -188,12 +212,16 @@ class Trainer:
             return 1.0
         best = Agent(self._eval_fn(self.params_best), self.cfg.mcts)
         cont = Agent(self._eval_fn(self.params_new), self.cfg.mcts)
-        rate, score = compare(self.env, best, cont, self.cfg.train.gate_games,
-                              generator=self.generator, sampling=True,
-                              device=self.device)
+        rate, score = self._compare(best, cont, self.cfg.train.gate_games,
+                                    sampling=True)
         self.last_gate_score = score.tolist()
         self.log.log("gate", win_rate=rate, score=self.last_gate_score)
         return rate
+
+    def _compare(self, best: Agent, contender: Agent, games: int, **kw):
+        """``eval.arena.compare`` with the trainer's generator."""
+        return compare(self.env, best, contender, games,
+                       generator=self.generator, device=self.device, **kw)
 
     def _eval_fn(self, params):
         return make_eval_fn(self.model, params, self.fused_resnet)
@@ -207,8 +235,7 @@ class Trainer:
         vanilla = Agent(None, dataclasses.replace(self.cfg.mcts,
                                                   num_simulations=sims))
         model = Agent(self._eval_fn(self.params_best), self.cfg.mcts)
-        rate, score = compare(self.env, vanilla, model, games,
-                              generator=self.generator, device=self.device)
+        rate, score = self._compare(vanilla, model, games)
         self.last_vanilla_score = score.tolist()
         self.log.log("vanilla_eval", model_win_rate=rate, vanilla_sims=sims,
                      score=self.last_vanilla_score)
@@ -284,6 +311,10 @@ class Trainer:
         state = self._ckpt.restore(self._state(), step=step)
         if state is None:
             return False
+        self._load_state(state)
+        return True
+
+    def _load_state(self, state: dict):
         dev = self.device
         self.params_best = {k: v.to(dev) for k, v in
                             state["params_best"].items()}
@@ -295,7 +326,6 @@ class Trainer:
         self.dropout_generator.set_state(state["dropout_generator"])
         self.version = int(state["version"])
         self.outer_iter = int(state["outer_iter"])
-        return True
 
     def import_buffer(self, workdir: str, step: Optional[int] = None) -> int:
         """Seed this run's replay buffer with the newest ``min(size,
@@ -347,9 +377,6 @@ class Trainer:
             self.cfg.model, self.env, self.params_new, new_depth,
             torch.Generator().manual_seed(seed))
         self.cfg = dataclasses.replace(self.cfg, model=mcfg)
-        self._runner = make_selfplay_runner(self.env, self.model,
-                                            self.cfg.mcts, self.cfg.replay,
-                                            self._chunk_steps,
-                                            self.fused_resnet)
+        self._runner = self._make_runner()
         if self._config_dir:
             save_config(self.cfg, self._config_dir)

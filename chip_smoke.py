@@ -8,14 +8,15 @@ Phases (any failure exits non-zero before the final line):
   2. the dense-forward kernel against its plain PyTorch version at B=512,
      width 512, 2 blocks, seeded random weights, observations from random
      playouts: error and time of both; then at B=512, 128 and the ragged
-     1, 17, 129: error, launch geometry (CTAs, cluster, games per tile,
+     1, 17, 129, and at phase 13a's 256 games a rank: error, launch geometry (CTAs, cluster, games per tile,
      shared memory, clusters the card holds), and the device time of the
      kernel and of the eager module (make_eval_fn): CUDA events around
      calls queued behind a sleep kernel (``device_ms``);
   3. the whole-chunk search kernels against the plain chunk, bit for bit,
      under the exact stub evaluator at B=512, S=200, M=4 with Dirichlet
      noise and temperature sampling (both fed the same noise and uniforms),
-     empty boards and boards one move from a win mixed in;
+     empty boards and boards one move from a win mixed in; the same at
+     B=256, the batch each rank of phase 13a plays;
   4. the main path: ``Trainer(preset("connect4")).collect`` at full width
      with the real forward kernel, launch counts set to 0 before and read
      after, checks on the games it produced, env-steps/s over >= 3 chunks;
@@ -121,13 +122,37 @@ Phases (any failure exits non-zero before the final line):
      ``expand_depth(2)`` on the card, one move on the deeper model, and a
      trainer built from the workdir's config.json restoring its checkpoint
      (the dropout generator included);
+ 13. multi-process training (``parallel/``, ``training/spmd_loop.py``) on
+     the one card, each rank a process of its own whose output is captured
+     (``build/smoke_mesh``) and joined before the result: (a)
+     ``SpmdTrainer(preset("connect4")).iterate(vanilla_eval=False)`` at
+     data=2, two gloo ranks of 256 games each: launches per rank and phase
+     (the chunk kernels every chunk on both, the gate's on rank 0 only),
+     each rank's first chunk bitwise against the single-process chunk on
+     its games from the same generator state, the global counters against
+     the sum over the ranks, the contender bitwise equal on both ranks
+     after ``train_epoch``, one learner step's all-reduced gradients
+     against one process's on the two half batches together
+     (``TOL_GRAD``), the same gate score and decision on both ranks,
+     collect / train / gate seconds and the time of one all-reduce of the
+     gradients; (b) ``python -m alphazero_tpu_torch train --preset
+     connect4 --mesh data=1 --iterations 1 --no-gate`` in a subprocess, one
+     NCCL rank: its metrics, ``config.json`` and checkpoint; (c)
+     ``gomoku7-reference`` at data=1, model=2, two gloo ranks: the split
+     ViT's forward at B=256 against the replicated one (float32 and bf16,
+     ``TOL_VIT``) with its time beside the replicated forward's, one loss's
+     gradients against the replicated ones (``TOL_GRAD``), and one search
+     on the sim kernels with the split forward, its trees bitwise equal
+     across the model ranks.  Two ranks on one card are not a scaling
+     measurement;
 then the main-path summaries, one JSON line of all eleven kernels (each
 with the games it was held at, the group kernels' geometry, the
 ``device_ms`` of the root, the tail and the move search's two ends (with
 the launch floor), the eager dense forward's device time beside the dense
 kernel, the gomoku9-dense path's launches, times and bounds under
-``by_path``, and the sim kernels' gomoku7-reference launches and times),
-the card line, and the device JSON.
+``by_path``, the sim kernels' gomoku7-reference launches and times, and
+the chunk and move kernels' rank-0 launches of phase 13a), the phase-13
+``mesh_path`` summary, the card line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -2470,6 +2495,512 @@ def vit_phase(gen, dev):
     return out_, step, flush, split, total, dev_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-process training (parallel/, training/spmd_loop.py)
+# ---------------------------------------------------------------------------
+
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 5e-2}   # of a tensor's largest |g|
+MESH_TIMEOUT_S = 600
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _grad_err(got, want):
+    """Largest ``|got - want|`` over ``want``'s largest ``|g|``, over every
+    tensor but the attention's key biases (true gradient 0: the softmax
+    ignores a shift common to every key)."""
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30)
+               for k in want if not k.endswith("attn.key.bias"))
+
+
+def mesh_dp_rank(out):
+    """Phase 13a on one of two ranks sharing the card over gloo:
+    ``SpmdTrainer(preset("connect4")).iterate(vanilla_eval=False)`` at
+    data=2 (256 games a rank) with launches per phase, its first chunk
+    against the single-process chunk on this rank's games, the contender
+    after ``train_epoch``, one learner step's all-reduced gradients on a
+    sampled half batch, and the time of one all-reduce of the gradients."""
+    import dataclasses
+
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.data.replay import ReplayBuffer, sample
+    from alphazero_tpu_torch.parallel.distributed import (all_reduce,
+                                                          process_info)
+    from alphazero_tpu_torch.parallel.mesh import make_mesh
+    from alphazero_tpu_torch.search import fused
+    from alphazero_tpu_torch.training import learner
+    from alphazero_tpu_torch.training.selfplay import selfplay_chunk
+    from alphazero_tpu_torch.training.spmd_loop import SpmdTrainer
+    from alphazero_tpu_torch.utils.checkpoint import _to_cpu as _cpu
+    from alphazero_tpu_torch.utils.metrics import MetricsLogger
+    cfg = preset("connect4")
+    mesh = make_mesh(2)
+    dev = process_info()["device"]
+    tr = SpmdTrainer(cfg, mesh, logger=MetricsLogger(stdout=False))
+    M = tr._chunk_steps
+
+    def clone_sp(sp):
+        gen = torch.Generator(device=dev)
+        gen.set_state(sp.generator.get_state())
+        return dataclasses.replace(
+            sp, env_state=dataclasses.replace(sp.env_state, **{
+                f.name: getattr(sp.env_state, f.name).clone()
+                for f in dataclasses.fields(sp.env_state)}),
+            traj_obs=sp.traj_obs.clone(), traj_policy=sp.traj_policy.clone(),
+            t=sp.t.clone(), generator=gen)
+
+    def clone_ring(b):
+        return ReplayBuffer(**{f.name: getattr(b, f.name).clone()
+                               for f in dataclasses.fields(b)})
+
+    init = {k: v.clone() for k, v in tr.params_best.items()}
+    sp0, ring0 = clone_sp(tr.sp), clone_ring(tr.buffer)
+    first, trained = {}, {}
+    runner = tr._runner
+
+    def capture(params, sp, buf):
+        sp, buf = runner(params, sp, buf)
+        if not first:
+            first.update(sp=clone_sp(sp), ring=clone_ring(buf))
+        return sp, buf
+
+    tr._runner = capture
+    split = {}
+    counts = counted_phases(tr, ("collect", "train_epoch", "gate"),
+                            fused.KERNELS, split)
+    train_epoch = tr.train_epoch
+
+    def train_and_keep():
+        m = train_epoch()
+        trained.update(_cpu(tr.params_new))
+        return m
+
+    tr.train_epoch = train_and_keep
+    for k in fused.KERNELS:
+        k.launches = 0
+    it = tr.iterate(vanilla_eval=False)
+    launches = counts()
+    log(f"[mesh a] rank {mesh.rank}: iterate launches {launches}; per phase "
+        f"{split}")
+
+    # the first chunk again, in this process alone, on this rank's games
+    sp1, ring1 = selfplay_chunk(tr.env, tr.model, init, cfg.mcts, cfg.replay,
+                                sp0, ring0, M)
+    torch.cuda.synchronize()
+    got = first["sp"]
+    same = {k: torch.equal(getattr(got, k), getattr(sp1, k))
+            for k in ("traj_obs", "traj_policy", "t")}
+    same["board"] = torch.equal(got.env_state.board, sp1.env_state.board)
+    for f in dataclasses.fields(ReplayBuffer):
+        same[f"ring.{f.name}"] = torch.equal(getattr(first["ring"], f.name),
+                                             getattr(ring1, f.name))
+
+    # one learner step on a sampled half batch: all-reduced gradients
+    gen = torch.Generator(device=dev).manual_seed(100 + mesh.rank)
+    obs, pol, val = sample(tr.buffer, cfg.train.batch_size // 2,
+                           generator=gen, syms=tr._syms,
+                           augment_skip=cfg.replay.augment_skip_moves)
+    ps = learner.leaf_copies(tr.params_new)
+    opt = learner.make_optimizer(cfg.train, ps)
+    learner.train_step(tr.model, ps, opt, obs, pol, val, cfg.train.l2_coeff,
+                       None, mesh)
+    grads = {k: p.grad for k, p in ps.items()}
+
+    # the all-reduce of one step's gradients and metrics, alone
+    n = sum(p.numel() for p in tr.params_new.values()) + 4
+    flat = torch.zeros(n, device=dev)
+    reps = 20
+    for _ in range(3):
+        all_reduce(flat, mesh.data_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce(flat, mesh.data_group)
+    torch.cuda.synchronize()
+    ar_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return _cpu(dict(
+        iterate={k: it[k] for k in (
+            "collect_seconds", "train_seconds", "gate_seconds", "games",
+            "env_steps", "steps", "loss", "accepted", "gate_rate",
+            "buffer_size", "chunk_seconds")},
+        launches=launches, split=split, chunks=len(it["chunk_seconds"]),
+        M=M, same_first_chunk=same,
+        local={"games": int(sp1.games_done - sp0.games_done),
+               "env_steps": int(sp1.env_steps - sp0.env_steps),
+               "results": (sp1.results - sp0.results).tolist()},
+        global_first={"games": int(got.games_done),
+                      "env_steps": int(got.env_steps),
+                      "results": got.results.tolist()},
+        games_local=int(tr.sp.t.numel()), trained=trained,
+        gate_score=tr.last_gate_score, version=tr.version,
+        ring_size=int(tr.buffer.size), params_in=tr.params_new,
+        batch=dict(obs=obs, pol=pol, val=val), grads=grads,
+        allreduce_ms=ar_ms, allreduce_bytes=4 * n))
+
+
+def mesh_tp_rank(out):
+    """Phase 13c on one of two model ranks sharing the card over gloo
+    (``gomoku7-reference``, data=1, model=2): the split ViT's forward at
+    B=256 against the replicated one in float32 and bf16, with times; one
+    learner loss's gradients against the replicated ones; and one self-play
+    search on the sim kernels with the split forward, whose tree each rank
+    reduces to a digest."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.models import (build_model, init_params,
+                                            make_eval_fn)
+    from alphazero_tpu_torch.parallel import TPViT, make_mesh
+    from alphazero_tpu_torch.parallel.distributed import (barrier,
+                                                          process_info)
+    from alphazero_tpu_torch.parallel.mesh import (shard_vit_params,
+                                                   vit_split_dim)
+    from alphazero_tpu_torch.search import sim
+    from alphazero_tpu_torch.search.mcts import search_inputs
+    from alphazero_tpu_torch.training import learner
+    cfg = preset("gomoku7-reference")
+    env = make_env(cfg.env)
+    mesh = make_mesh(1, 2)
+    dev = process_info()["device"]
+    B, A = cfg.train.selfplay_batch, env.action_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    obs = env.observation(random_positions(env, B, gen, dev))
+    pol = torch.softmax(torch.randn((B, A), generator=gen, device=dev), -1)
+    val = torch.rand((B,), generator=gen, device=dev) * 2 - 1
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dataclasses.replace(cfg.model,
+                                                compute_dtype=dtype), env)
+        params = {k: v.to(dev) for k, v in init_params(
+            model, torch.Generator().manual_seed(0)).items()}
+        model = model.to(dev)
+        tp = TPViT(model, mesh)
+        local = shard_vit_params(params, mesh)
+        with torch.no_grad():
+            want = functional_call(model, params, (obs,))
+            got = functional_call(tp, local, (obs,))
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ev_rep, ev_tp = make_eval_fn(model, params), make_eval_fn(tp, local)
+        # the replicated forward timed on rank 0 while rank 1 waits: two
+        # processes' kernels time-slice the card
+        rep_ms = (device_ms([("vit", lambda: ev_rep(obs), 5)])["vit"]
+                  if mesh.rank == 0 else None)
+        barrier()
+        reps = 10
+        tp_wall = cuda_ms(lambda: ev_tp(obs), reps)
+        prof = device_profile(lambda: [ev_tp(obs) for _ in range(reps)],
+                              names=True)
+        tp_busy = tp_copy = None
+        if prof is not None:
+            copy = sum(us for name, (_, us) in prof[0].items()
+                       if name.startswith("Memcpy"))
+            tp_busy = (prof[1] - copy) / reps / 1e3
+            tp_copy = copy / reps / 1e3
+        rs, ps = learner.leaf_copies(params), learner.leaf_copies(local)
+        for net, p in ((model, rs), (tp, ps)):
+            loss, _ = learner.loss_fn(net, p, obs, pol, val,
+                                      cfg.train.l2_coeff)
+            loss.backward()
+        want_g = {k: (p.grad if vit_split_dim(k) is None else p.grad.chunk(
+            2, vit_split_dim(k))[mesh.model_index]) for k, p in rs.items()}
+        g_err = _grad_err({k: p.grad for k, p in ps.items()}, want_g)
+        log(f"[mesh c] rank {mesh.rank} {dtype}: split forward vs replicated "
+            f"max abs err {err:.3e} (tol {TOL_VIT[dtype]}); gradients "
+            f"{g_err:.3e} of the largest (tol {TOL_GRAD[dtype]}); replicated "
+            f"forward {rep_ms} ms device (device_ms, rank 0 alone), split "
+            f"forward {tp_wall:.4f} ms per call (CUDA events, two gloo "
+            f"all-reduces a block), {tp_busy} ms of kernels and {tp_copy} "
+            f"ms of copies (profile)")
+        res[dtype] = dict(max_abs_err=err, grad_err=g_err,
+                          replicated_device_ms=rep_ms, split_call_ms=tp_wall,
+                          split_kernel_ms=tp_busy, split_copy_ms=tp_copy,
+                          finite=all(bool(torch.isfinite(a).all())
+                                     for a in got))
+
+    # one self-play search (the preset's bf16 split forward) on sim kernels
+    st = random_positions(env, B, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+    args = search_inputs(env, cfg.mcts, st.board, st.current_player,
+                         st.move_count, st.done,
+                         torch.Generator(device=dev).manual_seed(2), None,
+                         None, dev)
+    for k in sim.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tree = sim._search_tree(sim.DISPATCH, env, cfg.mcts, ev_tp, *args)
+    torch.cuda.synchronize()
+    res["search"] = dict(
+        seconds=time.perf_counter() - t0,
+        launches={k.name: k.launches for k in sim.KERNELS},
+        digests={f.name: _digest(getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)},
+        visits=int(tree.stats[:, 0, 0].sum()))
+    return res
+
+
+RANK_PROGRAMS = {"dp": mesh_dp_rank, "tp": mesh_tp_rank}
+
+
+def rank_main(name, rank, world, coordinator, out):
+    """One rank of a phase-13 program (``chip_smoke.py --rank ...``, started
+    by :func:`run_ranks`): join the group, run, save the result."""
+    from alphazero_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(coordinator, int(world), int(rank), "cuda",
+                           timeout=MESH_TIMEOUT_S)
+    try:
+        res = RANK_PROGRAMS[name](Path(out))
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        distributed.destroy()
+
+
+def run_ranks(name, world, out):
+    """Start ``world`` ranks of program ``name`` as processes of their own
+    (their output captured in ``out/rank<r>.log``), wait for all of them
+    (a failing rank stops the others) and return their results."""
+    import shutil
+
+    from alphazero_tpu_torch.parallel.distributed import free_port
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    coord = f"127.0.0.1:{free_port()}"
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", name,
+         str(r), str(world), coord, str(out)],
+        cwd=Path(__file__).resolve().parent, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        for line in (out / f"rank{r}.log").read_text().splitlines():
+            if line.startswith("[") or p.returncode:
+                log(f"  [rank {r}] {line}")
+    if any(p.returncode for p in procs):
+        fail(f"phase 13 {name}: rank exit codes "
+             f"{[p.returncode for p in procs]}")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def mesh_phase(dev, forward_held, chunk_held):
+    """Phase 13: multi-process training on the one card.  (a) connect4,
+    data=2, two gloo ranks; (b) ``python -m alphazero_tpu_torch train
+    --preset connect4 --mesh data=1`` on NCCL; (c) gomoku7-reference,
+    data=1, model=2, two gloo ranks.  ``forward_held`` and ``chunk_held``
+    are the connect4 batches at which phases 2 and 3 held the forward and
+    the chunk's kernels against their plain versions.  Returns the summary
+    and (a)'s rank-0 launches per phase."""
+    import dataclasses
+    import shutil
+
+    from alphazero_tpu_torch.config import load_config, preset
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.models import build_model
+    from alphazero_tpu_torch.training import learner
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "smoke_mesh"
+    cfg = preset("connect4")
+    env = make_env(cfg.env)
+    S = cfg.mcts.num_simulations
+    summary = {}
+
+    # ---- a. connect4, data=2
+    ra = run_ranks("dp", 2, root / "a")
+    r0, r1 = ra
+    M, Bl = r0["M"], r0["games_local"]
+    searches = 2 * env.max_moves
+    gate = {"az_dense_forward": searches * (S - 1),
+            "az_descend_leaf": searches * (S - 1),
+            "az_apply": searches * (S - 1),
+            "az_move_root_init": searches, "az_root_counts": searches}
+
+    def collect(chunks):
+        return {"az_dense_forward": chunks * M * S, "az_root_obs": chunks,
+                "az_root_init": chunks * M,
+                "az_descend_leaf": chunks * M * (S - 1),
+                "az_apply": chunks * M * (S - 1),
+                "az_move_tail": chunks * M, "az_move_root_init": 0,
+                "az_root_counts": 0}
+
+    def same(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    batch = {k: torch.cat([r["batch"][k] for r in ra]).to(dev)
+             for k in ("obs", "pol", "val")}
+    model = build_model(cfg.model, env).to(dev)
+    ps = learner.leaf_copies({k: v.to(dev) for k, v in
+                              r0["params_in"].items()})
+    loss, _ = learner.loss_fn(model, ps, batch["obs"], batch["pol"],
+                              batch["val"], cfg.train.l2_coeff)
+    loss.backward()
+    g_err = _grad_err({k: v.to(dev) for k, v in r0["grads"].items()},
+                      {k: p.grad for k, p in ps.items()})
+    checks = {
+        "each rank plays half the games": Bl == cfg.train.selfplay_batch // 2
+        and r1["games_local"] == Bl,
+        f"the forward and the chunk's kernels held against their plain "
+        f"versions at the rank's B={Bl} (phases 2-3)": Bl in forward_held
+        and Bl in chunk_held,
+        "collect launches: the chunk kernels, every chunk, each rank": all(
+            r["split"]["collect"] == collect(r["chunks"]) for r in ra),
+        "the learner launches no search kernel": all(
+            not any(r["split"]["train_epoch"].values()) for r in ra),
+        "the gate plays on rank 0 only": r0["split"]["gate"] == {
+            n: gate.get(n, 0) for n in r0["split"]["gate"]}
+        and not any(r1["split"]["gate"].values()),
+        "first chunk = the single-process chunk on the rank's games": all(
+            all(r["same_first_chunk"].values()) for r in ra),
+        "global counters = the sum over the ranks": all(
+            r["global_first"]["games"] == r0["local"]["games"]
+            + r1["local"]["games"]
+            and r["global_first"]["env_steps"] == r0["local"]["env_steps"]
+            + r1["local"]["env_steps"]
+            and r["global_first"]["results"] == [
+                a + b for a, b in zip(r0["local"]["results"],
+                                      r1["local"]["results"])] for r in ra),
+        "contender bitwise equal on both ranks after train_epoch": same(
+            r0["trained"], r1["trained"]) and bool(r0["trained"]),
+        "the all-reduced gradients equal on both ranks": same(r0["grads"],
+                                                              r1["grads"]),
+        f"gradients vs one process on the whole batch (tol "
+        f"{TOL_GRAD['bfloat16']})": g_err <= TOL_GRAD["bfloat16"],
+        "same decision and gate score on both ranks": r0["gate_score"]
+        == r1["gate_score"] and r0["version"] == r1["version"]
+        and r0["iterate"]["accepted"] == r1["iterate"]["accepted"],
+        "finite loss, every ring holds games": math.isfinite(
+            r0["iterate"]["loss"]) and all(r["ring_size"] > 0 for r in ra),
+    }
+    it = r0["iterate"]
+    log(f"[mesh a] connect4 data=2 (gloo, two ranks on one card; not a "
+        f"scaling number): collect {it['collect_seconds']:.3f} s "
+        f"({r0['chunks']} chunks, {it['games']} games, {it['env_steps']} "
+        f"env-steps, {it['env_steps'] / it['collect_seconds']:.1f} "
+        f"env-steps/s), train {it['train_seconds']:.3f} s ({it['steps']} "
+        f"steps of 2 x {cfg.train.batch_size // 2}), gate "
+        f"{it['gate_seconds']:.3f} s (score {r0['gate_score']}, accepted "
+        f"{it['accepted']}); gradients vs one process {g_err:.3e} of the "
+        f"largest; all-reduce of {r0['allreduce_bytes'] / 1e6:.2f} MB: "
+        f"{r0['allreduce_ms']:.3f} / {r1['allreduce_ms']:.3f} ms")
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("phase 13a (connect4, data=2) checks failed")
+    summary["connect4_data2"] = dict(
+        backend="gloo", ranks_on_one_card=2, iterate=it,
+        chunks=r0["chunks"], launches_by_phase={r: ra[r]["split"]
+                                                for r in (0, 1)},
+        gate_score=r0["gate_score"], grad_err=g_err,
+        allreduce_ms=[r["allreduce_ms"] for r in ra],
+        allreduce_bytes=r0["allreduce_bytes"])
+
+    # ---- b. the command line, data=1, on NCCL
+    wd = root / "b"
+    shutil.rmtree(wd, ignore_errors=True)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "alphazero_tpu_torch", "train", "--preset",
+         "connect4", "--mesh", "data=1", "--iterations", "1", "--no-gate",
+         "--workdir", str(wd)], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    recs = [json.loads(ln) for ln in cli.stdout.splitlines()
+            if ln.startswith("{")]
+    logged = ([json.loads(ln) for ln in (wd / "metrics.jsonl").read_text()
+               .splitlines()] if (wd / "metrics.jsonl").exists() else [])
+    ckpt = wd / "checkpoints" / "1" / "state.pt"
+    state = (torch.load(ckpt, map_location="cpu", weights_only=True)
+             if ckpt.exists() else None)
+    stored = load_config(str(wd)) if (wd / "config.json").exists() else None
+    itb = recs[-1] if recs else {}
+    checks = {
+        "exit 0": cli.returncode == 0,
+        "one NCCL rank": "rank 0 of 1: device cuda:0, backend nccl"
+        in cli.stderr,
+        "collect / train / gate / iteration printed and logged": [
+            r["kind"] for r in recs] == ["collect", "train", "iteration"]
+        and [r["kind"] for r in logged] == [r["kind"] for r in recs],
+        "config.json is the preset's, gate off": stored == dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, gate_enabled=False)),
+        "checkpoint at version 1 with one ring and finite parameters":
+        state is not None and int(state["version"]) == 1
+        and tuple(state["buffer"]["size"].shape) == (1,)
+        and int(state["buffer"]["size"][0]) > 0
+        and all(bool(torch.isfinite(v).all())
+                for v in state["params_best"].values()),
+    }
+    log(f"[mesh b] python -m alphazero_tpu_torch train --preset connect4 "
+        f"--mesh data=1 --iterations 1 --no-gate: {cli_s:.1f} s, collect "
+        f"{itb.get('collect_seconds')} s, train {itb.get('train_seconds')} s "
+        f"({itb.get('steps')} steps)")
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        log(cli.stderr[-4000:])
+        fail("phase 13b (the command line on NCCL) checks failed")
+    summary["connect4_cli_data1"] = dict(
+        backend="nccl", seconds=cli_s, iterate={k: itb.get(k) for k in (
+            "collect_seconds", "train_seconds", "steps", "games", "loss")})
+
+    # ---- c. gomoku7-reference, data=1, model=2
+    rc = run_ranks("tp", 2, root / "c")
+    cs = [r["search"] for r in rc]
+    pc = preset("gomoku7-reference")
+    checks = {
+        **{f"split forward vs replicated, {dt} (tol {TOL_VIT[dt]})": all(
+            r[dt]["finite"] and r[dt]["max_abs_err"] <= TOL_VIT[dt]
+            for r in rc) for dt in TOL_VIT},
+        **{f"split gradients vs replicated, {dt} (tol {TOL_GRAD[dt]})": all(
+            r[dt]["grad_err"] <= TOL_GRAD[dt] for r in rc) for dt in TOL_GRAD},
+        "the search's trees bitwise equal on both model ranks":
+        cs[0]["digests"] == cs[1]["digests"],
+        "sim kernels: S-1 steps and one flush": all(
+            c["launches"] == {"az_sim_step": pc.mcts.num_simulations - 1,
+                              "az_sim_flush": 1} for c in cs),
+    }
+    log(f"[mesh c] gomoku7-reference data=1 model=2 (gloo, two ranks on one "
+        f"card): bf16 split forward {rc[0]['bfloat16']['split_call_ms']:.4f} "
+        f"ms per call, {rc[0]['bfloat16']['split_kernel_ms']} ms of kernels, "
+        f"beside the replicated {rc[0]['bfloat16']['replicated_device_ms']} "
+        f"ms; one search {cs[0]['seconds']:.2f} s")
+    for name, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {name}")
+    if not all(checks.values()):
+        fail("phase 13c (gomoku7-reference, model=2) checks failed")
+    summary["gomoku7_model2"] = dict(
+        backend="gloo", ranks_on_one_card=2,
+        **{dt: [r[dt] for r in rc] for dt in TOL_VIT},
+        search_seconds=[c["seconds"] for c in cs],
+        search_launches=cs[0]["launches"])
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 13 took {summary['phase_seconds']:.1f} s")
+    return summary, r0["split"]
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2561,11 +3092,19 @@ def main():
     by_batch = forward_by_batch(env, model, params, packed,
                                 (B, cfg.train.gate_games // 2, 1, 17, 129),
                                 (B, cfg.train.gate_games // 2), gen, dev)
+    # phase 13a's batch: each of its two data ranks plays B / 2 games (a
+    # generator of its own leaves the other batches' draws as they were)
+    by_batch.update(forward_by_batch(
+        env, model, params, packed, (B // 2,), (),
+        torch.Generator(device=dev).manual_seed(13), dev))
     summary["az_dense_forward"]["by_batch"] = by_batch
 
-    # ---- 3. search kernels vs the plain chunk, bitwise (exact stub)
+    # ---- 3. search kernels vs the plain chunk, bitwise (exact stub), at
+    # self-play's batch and at phase 13a's batch a rank
     mcfg = cfg.mcts
-    chunk_bitwise(env, mcfg, B, 4, gen, dev)
+    chunk_held = [chunk_bitwise(env, mcfg, Bc, 4, g, dev)["batch"]
+                  for Bc, g in ((B, gen), (B // 2, torch.Generator(
+                      device=dev).manual_seed(13)))]
     stub = exact_stub_evaluator(env)
 
     # ---- 4. the main path
@@ -2809,6 +3348,10 @@ def main():
     path12, step12, flush12, split12, total12, move_ms12 = vit_phase(gen,
                                                                      dev)
 
+    # ---- 13. multi-process training
+    path13, split13 = mesh_phase(dev, {int(b) for b in by_batch},
+                                 chunk_held)
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -2847,7 +3390,10 @@ def main():
                 **{f: kern11[k.name][f] for f in (
                     "max_abs_err", "plain_ms", "bound_ms", "bound_by",
                     "geometry", "device_ms", "launch_floor_ms")
-                    if f in kern11[k.name]}}}})
+                    if f in kern11[k.name]}},
+                "mesh_connect4_data2_rank0": {
+                    "launches_collect": split13["collect"][k.name],
+                    "launches_gate": split13["gate"][k.name]}}})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({
@@ -2906,6 +3452,7 @@ def main():
     log(json.dumps({"fused_resnet_path": path10}))
     log(json.dumps({"gomoku9_dense_path": path11}))
     log(json.dumps({"vit_path": path12}))
+    log(json.dumps({"mesh_path": path13}))
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
@@ -2915,4 +3462,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(*sys.argv[2:])
+    else:
+        main()

@@ -9,8 +9,8 @@
   ``train --resume --expand-depth 2``: the checkpoint and ``config.json``
   hold the deeper ViT, and ``eval`` and ``play`` restore it from the
   workdir.
-* Flags of parts not yet ported (module 12) exit non-zero naming their
-  ROADMAP module.
+* ``--mesh`` specs parse as the JAX package's ``_parse_mesh`` parses them,
+  and the bad ones exit with its messages.
 * Scripted ``play`` against vanilla search ends in a result;
   ``parse_input`` reads cells and columns; ``agent_move`` plays a legal
   move for a tictactoe ResNet, connect4 and tictactoe dense towers (the
@@ -149,14 +149,23 @@ def test_play_restores_the_expanded_vit(vit_run, monkeypatch):
     assert torch.equal(p, wp) and torch.equal(v, wv)
 
 
-@pytest.mark.parametrize("flags,module", [
-    (["--mesh", "data=2"], "module 12"),
-    (["--num-processes", "2"], "module 12"),
-])
-def test_unported_flags_exit_naming_their_module(flags, module):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["train", *TINY, *flags])
-    assert module in str(e.value.code)
+@pytest.mark.parametrize("spec", ["data=0", "model=2", "data=2,data=2",
+                                  "foo=1", "data=x", "data=2,model=0"])
+def test_parse_mesh_rejects_bad_specs(spec):
+    from alphazero_tpu.cli import _parse_mesh as jax_parse_mesh
+    with pytest.raises(SystemExit) as want:
+        jax_parse_mesh(spec)
+    with pytest.raises(SystemExit) as got:
+        cli._parse_mesh(spec)
+    assert str(got.value.code) == str(want.value.code)
+
+
+@pytest.mark.parametrize("spec,shape", [("data=8", (8, 1)),
+                                        ("data=4,model=2", (4, 2)),
+                                        ("model=2,data=1", (1, 2))])
+def test_parse_mesh_reads_data_and_model(spec, shape):
+    from alphazero_tpu.cli import _parse_mesh as jax_parse_mesh
+    assert cli._parse_mesh(spec) == jax_parse_mesh(spec) == shape
 
 
 def test_parse_input_cell_and_column():

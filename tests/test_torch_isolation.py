@@ -43,6 +43,7 @@ def test_sources_never_name_jax_or_the_jax_package():
                      re.MULTILINE)
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tests" / "test_torch_ranks.py")    # spawned ranks' module
     assert len(files) > 10
     for p in files:
         text = p.read_text().replace("alphazero_tpu_torch", "")
@@ -56,7 +57,8 @@ def test_sources_never_name_jax_or_the_jax_package():
                                    "sim_search",
                                    "xla_search", "vanilla_search",
                                    "leaf_batch_search", "cli_train",
-                                   "cli_eval", "play", "bench"])
+                                   "cli_eval", "play", "bench",
+                                   "spmd_trainer", "cli_train_mesh"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
@@ -71,6 +73,7 @@ def test_entry_points_raise_without_cuda(entry):
     from alphazero_tpu_torch.search.mcts import run_mcts, run_mcts_xla
     from alphazero_tpu_torch.search.sim import run_mcts_sim
     from alphazero_tpu_torch.training import Trainer, init_selfplay
+    from alphazero_tpu_torch.training.spmd_loop import SpmdTrainer
     env = make_env("connect4")
     z = torch.zeros(2, dtype=torch.int32)
     roots = (torch.zeros((2, 2, 6, 7), dtype=torch.int8), z, z,
@@ -106,6 +109,10 @@ def test_entry_points_raise_without_cuda(entry):
         "play": lambda: play_against_agent(
             env, None, tcfg.MCTSConfig(num_simulations=4), 0),
         "bench": lambda: bench.main(),
+        "spmd_trainer": lambda: SpmdTrainer(tcfg.preset("connect4")),
+        "cli_train_mesh": lambda: cli.main(["train", "--preset", "tictactoe",
+                                            "--mesh", "data=2",
+                                            "--iterations", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
