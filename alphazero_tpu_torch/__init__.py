@@ -22,11 +22,15 @@ other networks, the leaf-batched rounds of ``search.mcts.run_mcts_xla`` for
 search), promote or revert, the vanilla sanity match, checkpoints, metrics
 and ``config.json``.  With ``AZ_FUSED_RESNET=1`` (``make_eval_fn(...,
 fused_resnet=True)``) the ResNet evaluates through the fused tower kernel
-``ops.resnet_tower``.  Not ported: multi-process training.
+``ops.resnet_tower``.  ``training.spmd_loop`` and ``parallel/`` train
+over several ranks (``train --mesh``); ``strength.py`` runs the JAX
+package's train-to-strength scripts as recipes.
 
 Layer map:
   cli.py     — train / eval / play / bench subcommands (``__main__.py``)
   bench.py   — self-play throughput of every preset on one GPU
+  strength.py — train to strength against vanilla search, one recipe per
+               JAX script (``scripts/train_*.py``, ``validate_learning.py``)
   config.py  — configuration dataclasses, presets, ``config.json``
   envs/      — batched game rules on tensors
   models/    — the dense tower, the conv ResNet and the ViT,

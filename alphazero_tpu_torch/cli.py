@@ -355,10 +355,15 @@ def _parser():
     return p
 
 
+def fused_resnet_opt_in() -> bool:
+    """The JAX package's switch ``AZ_FUSED_RESNET``, read once by an entry
+    point (``main`` here, ``strength.main``) and passed down."""
+    return bool(os.environ.get("AZ_FUSED_RESNET"))
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
-    # the JAX package's switch, read once and passed down
-    args.fused_resnet = bool(os.environ.get("AZ_FUSED_RESNET"))
+    args.fused_resnet = fused_resnet_opt_in()
     return args.fn(args)
 
 

@@ -145,14 +145,29 @@ Phases (any failure exits non-zero before the final line):
      on the sim kernels with the split forward, its trees bitwise equal
      across the model ranks.  Two ranks on one card are not a scaling
      measurement;
+ 14. train to strength (``strength.py``): the per-simulation engine's
+     whole search bitwise against its plain version at tictactoe B=128,
+     S=50 (the evaluations' half batch; live, won and drawn roots,
+     Dirichlet, exact stub); then the ``validate_learning`` recipe at full
+     preset width (ResNet 32x2, eager, S=50, 512 games an iteration, 6
+     iterations, the gate off) with 256-game evaluations against
+     vanilla-200: launch counts set to 0 before each collect, train
+     epoch, gate and evaluation and read after each (az_sim_step S-1 per
+     move searched, az_sim_flush one per search, the dense kernels and
+     the tower 0), every vanilla search timed, and checks on the curve
+     (finite losses, the last below the first, each score summing to the
+     games, the verdict PASS under ``trained > max(0.5, untrained)``);
+     it prints the curve, each iteration's collect and train seconds,
+     each evaluation's seconds and the vanilla search's ms per move;
 then the main-path summaries, one JSON line of all eleven kernels (each
 with the games it was held at, the group kernels' geometry, the
 ``device_ms`` of the root, the tail and the move search's two ends (with
 the launch floor), the eager dense forward's device time beside the dense
 kernel, the gomoku9-dense path's launches, times and bounds under
 ``by_path``, the sim kernels' gomoku7-reference launches and times, and
-the chunk and move kernels' rank-0 launches of phase 13a), the phase-13
-``mesh_path`` summary, the card line, and the device JSON.
+the chunk and move kernels' rank-0 launches of phase 13a, and every
+kernel's launches in phase 14 by phase), the phase-13 ``mesh_path`` and
+phase-14 ``strength`` summaries, the card line, and the device JSON.
 """
 
 from __future__ import annotations
@@ -924,13 +939,15 @@ def move_kernels_phase(env, mcfg, model, params, margs, noise, dev,
     return summary, err_b128
 
 
-def sim_search_bitwise(pname, B, gen, dev):
+def sim_search_bitwise(pname, B, gen, dev, drawn_tictactoe=False):
     """The per-simulation engine's whole search on the card against its
     plain version, bit for bit, at preset ``pname``'s game and search with
     B games: the exact stub evaluator, Dirichlet noise fed to both, live
     roots, a drawn one (not tictactoe) and, at gomoku, won ones (put in by
-    hand: random play rarely completes a line of five).  Fails on a
-    difference; returns the largest difference (0)."""
+    hand: random play rarely completes a line of five).  Tictactoe's
+    random positions hold drawn games of their own; ``drawn_tictactoe``
+    puts one in all the same.  Fails on a difference; returns the largest
+    difference (0)."""
     from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.envs import make_env
     from alphazero_tpu_torch.search import fused, sim
@@ -939,7 +956,7 @@ def sim_search_bitwise(pname, B, gen, dev):
     env, mcfg = make_env(pc.env), pc.mcts
     S, A = mcfg.num_simulations, env.action_dim
     st = random_positions(env, B, gen, dev)
-    if env.name != "tictactoe":
+    if env.name != "tictactoe" or drawn_tictactoe:
         st = with_drawn_game(st, env)
     if env.name.startswith("gomoku"):
         st = won_roots(env, st, slice(B // 2, B // 2 + min(8, B // 4)))
@@ -3001,6 +3018,162 @@ def mesh_phase(dev, forward_held, chunk_held):
     return summary, r0["split"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: train to strength (strength.py), the validate_learning recipe
+# ---------------------------------------------------------------------------
+
+STRENGTH_EVAL_GAMES = 256   # the recipe's 64 cannot resolve ±0.05
+
+
+def strength_phase(dev):
+    """Phase 14: ``strength.py``'s ``validate_learning`` recipe at full
+    preset width with 256-game evaluations.  The sim search bitwise at the
+    evaluations' half batch; launches set to 0 before each collect, train
+    epoch, gate and evaluation and read after each (az_sim_step S-1 per
+    move searched, az_sim_flush one per search, every other kernel 0);
+    every vanilla search of the evaluations timed; the curve checked
+    (finite losses, the last below the first, scores summing to the games,
+    the verdict PASS).  Returns (summary, launches by phase)."""
+    import shutil
+
+    from alphazero_tpu_torch import strength
+    from alphazero_tpu_torch.envs import make_env
+    from alphazero_tpu_torch.eval import arena
+    from alphazero_tpu_torch.ops import resnet_tower
+    from alphazero_tpu_torch.search import fused, sim
+    from alphazero_tpu_torch.search.mcts import run_mcts
+    t_phase = time.perf_counter()
+    name = "validate_learning"
+    recipe = strength.RECIPES[name]
+    cfg = recipe.config()
+    env = make_env(cfg.env)
+    S, G = cfg.mcts.num_simulations, STRENGTH_EVAL_GAMES
+    M = cfg.train.selfplay_chunk_steps or 32
+    out_ = {"recipe": name, "preset": "tictactoe", "eval_games": G,
+            "vanilla_sims": recipe.vanilla_sims, "num_simulations": S,
+            "model": f"{cfg.model.family} {cfg.model.channels}x"
+                     f"{cfg.model.blocks}"}
+
+    # ---- a. the evaluation's search, bitwise, at its half batch
+    sim_search_bitwise("tictactoe", G // 2,
+                       torch.Generator(device=dev).manual_seed(14), dev,
+                       drawn_tictactoe=True)
+
+    # ---- b. the recipe, launches counted per phase call
+    wd = Path(__file__).resolve().parent / "build" / "smoke_strength"
+    shutil.rmtree(wd, ignore_errors=True)
+    lines = []
+
+    def emit(line):
+        lines.append(line)
+        log(f"[strength] {json.dumps(line)}")
+
+    run = strength.Strength(recipe, cfg, str(wd), G, device=dev, emit=emit)
+    kernels = fused.KERNELS + sim.KERNELS + resnet_tower.KERNELS
+    calls, searches, vanilla_ms = [], [0], []
+
+    def counted(obj, attr, phase):
+        fn = getattr(obj, attr)
+
+        def call(*a, **kw):
+            for k in kernels:
+                k.launches = 0
+            searches[0] = 0
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append((phase, {k.name: k.launches for k in kernels},
+                          searches[0], res))
+            return res
+        setattr(obj, attr, call)
+
+    for obj, attr, phase in ((run.tr, "collect", "collect"),
+                             (run.tr, "train_epoch", "train"),
+                             (run.tr, "gate", "gate"),
+                             (run, "evaluate", "evaluate")):
+        counted(obj, attr, phase)
+
+    def timed_run_mcts(env_, eval_fn, *a, **kw):
+        if eval_fn is not None:
+            searches[0] += 1
+            return run_mcts(env_, eval_fn, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_mcts(env_, eval_fn, *a, **kw)
+        torch.cuda.synchronize()
+        vanilla_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    arena.run_mcts = timed_run_mcts
+    try:
+        result = run.run(recipe.iterations)
+    finally:
+        arena.run_mcts = run_mcts
+
+    # ---- c. launches: each call against what its searches require
+    bad, split = [], {}
+    for phase, got, n_model, res in calls:
+        moves = (len(res["chunk_seconds"]) * M if phase == "collect"
+                 else env.max_moves if phase == "evaluate" else 0)
+        want = {k.name: 0 for k in kernels}
+        want.update(az_sim_step=moves * (S - 1), az_sim_flush=moves)
+        if got != want or (phase == "evaluate" and n_model != moves):
+            bad.append((phase, got, want, n_model))
+        tot = split.setdefault(phase, {k.name: 0 for k in kernels})
+        for n, c in got.items():
+            tot[n] += c
+    log(f"[strength] launches by phase {split}")
+    if bad:
+        fail(f"phase 14 launch counts differ from the searches: {bad}")
+
+    # ---- d. the curve
+    train = [res for phase, _, _, res in calls if phase == "train"]
+    evals = [line for line in lines if "tag" in line]
+    iters = [line for line in lines if "iter" in line]
+    key = f"model_score_vs_vanilla{recipe.vanilla_sims}"
+    checks = {
+        f"{recipe.iterations} iterations, the gate off": len(iters)
+        == recipe.iterations and all(i["accepted"] for i in iters),
+        "every iteration's loss finite": len(train) == recipe.iterations
+        and all(math.isfinite(t[k]) for t in train for k in (
+            "loss", "policy_loss", "value_loss", "l2")),
+        "the last iteration's loss below the first": train[-1]["loss"]
+        < train[0]["loss"],
+        "every evaluation's score sums to the games": [
+            e["tag"] for e in evals] == ["untrained", "trained"] and all(
+            e["score"][0] + e["score"][1] == G and e["games"] == G
+            for e in evals),
+        "the untrained and trained evaluations ran the vanilla agent":
+            len(vanilla_ms) == 2 * env.max_moves,
+        "verdict PASS: trained > max(0.5, untrained)": result["result"]
+        == "PASS" and result["trained"] > max(0.5, result["untrained"]),
+    }
+    for cname, ok in checks.items():
+        log(f"  [{'ok' if ok else 'FAIL'}] {cname}")
+    curve = [[e["tag"], e["version"], e[key], e["score"]] for e in evals]
+    seconds = time.perf_counter() - t_phase
+    out_.update(
+        curve=curve, verdict=result,
+        losses=[t["loss"] for t in train],
+        iteration_seconds=[{k: i[k] for k in (
+            "collect_seconds", "train_seconds", "gate_seconds")}
+            for i in iters],
+        train_steps=[t["steps"] for t in train],
+        eval_seconds=[e["seconds"] for e in evals],
+        vanilla_ms_per_move=statistics.mean(vanilla_ms),
+        vanilla_ms_per_move_range=[min(vanilla_ms), max(vanilla_ms)],
+        launches_by_phase=split, phase_seconds=seconds)
+    log(f"[strength] {name} on the card: curve {curve}; losses "
+        f"{out_['losses']}; collect / train seconds by iteration "
+        f"{[(i['collect_seconds'], i['train_seconds']) for i in iters]}; "
+        f"evaluation seconds {out_['eval_seconds']}; vanilla-"
+        f"{recipe.vanilla_sims} search {out_['vanilla_ms_per_move']:.1f} ms "
+        f"a move at B={G // 2} (range {out_['vanilla_ms_per_move_range']})")
+    if not all(checks.values()):
+        fail("phase 14 (validate_learning) checks failed")
+    log(f"[strength] phase 14 took {seconds:.1f} s")
+    return out_, split
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3352,6 +3525,14 @@ def main():
     path13, split13 = mesh_phase(dev, {int(b) for b in by_batch},
                                  chunk_held)
 
+    # ---- 14. train to strength: the validate_learning recipe
+    path14, split14 = strength_phase(dev)
+
+    def strength_path(kname):
+        return {"tictactoe-validate_learning": {
+            "launches": sum(split14[p][kname] for p in split14),
+            **{f"launches_{p}": split14[p][kname] for p in split14}}}
+
     kernels = []
     for k in fused.KERNELS:
         s = summary[k.name]
@@ -3393,7 +3574,8 @@ def main():
                     if f in kern11[k.name]}},
                 "mesh_connect4_data2_rank0": {
                     "launches_collect": split13["collect"][k.name],
-                    "launches_gate": split13["gate"][k.name]}}})
+                    "launches_gate": split13["gate"][k.name]}}
+            | strength_path(k.name)})
     for k in sim.KERNELS:
         s = summary[k.name]
         kernels.append({
@@ -3416,7 +3598,7 @@ def main():
             "by_path": {"gomoku7-reference": {
                 "launches": total12[k.name],
                 "launches_collect": split12["collect"][k.name],
-                "ms": move_ms12.get(k.name)}}})
+                "ms": move_ms12.get(k.name)}} | strength_path(k.name)})
     s = summary10["az_resnet_tower"]
     kernels.append({
         "name": "az_resnet_tower", "route": "cuda",
@@ -3431,7 +3613,8 @@ def main():
         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
         "library_ms": None, "games": ["connect4", "gomoku9"],
         "eager_forward_ms": s["eager_forward_ms"],
-        "by_shape": s["by_shape"]})
+        "by_shape": s["by_shape"],
+        "by_path": strength_path("az_resnet_tower")})
     log(json.dumps({"main_path": {
         "preset": "connect4", "batch": B, "num_simulations": S,
         "chunk_moves": M, "chunk_seconds": chunk_seconds,
@@ -3453,6 +3636,7 @@ def main():
     log(json.dumps({"gomoku9_dense_path": path11}))
     log(json.dumps({"vit_path": path12}))
     log(json.dumps({"mesh_path": path13}))
+    log(json.dumps({"strength": path14}))
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -58,11 +58,12 @@ def test_sources_never_name_jax_or_the_jax_package():
                                    "xla_search", "vanilla_search",
                                    "leaf_batch_search", "cli_train",
                                    "cli_eval", "play", "bench",
-                                   "spmd_trainer", "cli_train_mesh"])
+                                   "spmd_trainer", "cli_train_mesh",
+                                   "strength"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
-    from alphazero_tpu_torch import bench, cli
+    from alphazero_tpu_torch import bench, cli, strength
     from alphazero_tpu_torch import config as tcfg
     from alphazero_tpu_torch.data import Symmetries, create
     from alphazero_tpu_torch.envs import make_env
@@ -113,6 +114,7 @@ def test_entry_points_raise_without_cuda(entry):
         "cli_train_mesh": lambda: cli.main(["train", "--preset", "tictactoe",
                                             "--mesh", "data=2",
                                             "--iterations", "1"]),
+        "strength": lambda: strength.main(["validate_learning"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
