@@ -17,6 +17,7 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.search.mcts import run_mcts
+from alphazero_tpu_torch.utils.profiling import span
 
 
 def parse_input(env, state, text: str) -> Optional[int]:
@@ -40,17 +41,19 @@ def agent_move(env, eval_fn, state, generator, mcts_cfg: MCTSConfig,
     """One search for game 0 of ``state`` on its device; prints each
     visited action's count and share and the root Q when ``verbose``.
     Returns the first most-visited action."""
-    res = run_mcts(env, eval_fn, state.board, state.current_player,
-                   state.move_count, state.done, mcts_cfg,
-                   generator=generator, device=state.board.device)
-    counts = res.visit_counts[0].cpu()
-    if verbose:
-        total = max(int(counts.sum()), 1)
-        for a in torch.nonzero(counts).reshape(-1).tolist():
-            print(f"  action {a}: visits={int(counts[a])} "
-                  f"p={int(counts[a]) / total:.3f}")
-        print(f"  root Q: {float(res.root_q[0]):+.3f}")
-    return int(counts.argmax())
+    with span("play.move"):
+        res = run_mcts(env, eval_fn, state.board, state.current_player,
+                       state.move_count, state.done, mcts_cfg,
+                       generator=generator, device=state.board.device)
+        with span("play.readback"):
+            counts = res.visit_counts[0].cpu()
+        if verbose:
+            total = max(int(counts.sum()), 1)
+            for a in torch.nonzero(counts).reshape(-1).tolist():
+                print(f"  action {a}: visits={int(counts[a])} "
+                      f"p={int(counts[a]) / total:.3f}")
+            print(f"  root Q: {float(res.root_q[0]):+.3f}")
+        return int(counts.argmax())
 
 
 def play_against_agent(env, eval_fn, mcts_cfg: MCTSConfig, human_turn: int,

@@ -15,6 +15,7 @@ from alphazero_tpu_torch.models.resnet import ResNet
 from alphazero_tpu_torch.models.vit import ViT
 from alphazero_tpu_torch.ops.resnet_tower import (make_fused_apply,
                                                   supports_fused_resnet)
+from alphazero_tpu_torch.utils.profiling import span
 
 
 def build_model(cfg: ModelConfig, env):
@@ -93,15 +94,17 @@ def make_eval_fn(model, params: dict, fused_resnet: bool = False):
         packed = apply.pack(params)
 
         def fused_eval_fn(obs):
-            logits, value = apply.apply_packed(packed, obs)
-            return torch.softmax(logits, dim=-1), value
+            with span("model.forward"):
+                logits, value = apply.apply_packed(packed, obs)
+                return torch.softmax(logits, dim=-1), value
 
         return fused_eval_fn
 
     @torch.no_grad()
     def eval_fn(obs):
-        logits, value = functional_call(model, params, (obs,))
-        return torch.softmax(logits, dim=-1), value
+        with span("model.forward"):
+            logits, value = functional_call(model, params, (obs,))
+            return torch.softmax(logits, dim=-1), value
 
     if isinstance(model, DenseTower):
         eval_fn.dense_spec = (model, params)

@@ -84,6 +84,7 @@ from alphazero_tpu_torch.ops.build import load as load_lib
 from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
                                              dirichlet_noise, first_argmax,
                                              root_prior, search_inputs)
+from alphazero_tpu_torch.utils.profiling import span
 
 NO_CHILD = -1
 ILLEGAL = -2
@@ -973,27 +974,32 @@ def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
     R, C = env.rows, env.cols
     dev = boards.device
     S = cfg.num_simulations
-    board = boards.to(torch.int8).contiguous().clone()
-    player = players.to(torch.int32).contiguous().clone()
-    mc = move_counts.to(torch.int32).contiguous().clone()
-    rec = {name: torch.zeros((M, B, A) if name == "policy" else (M, B),
-                             dtype=dt, device=dev)
-           for name, dt in _REC_TYPES.items()}
-    rec_obs = torch.zeros((M, B, F, R, C), dtype=torch.int8, device=dev)
-    tree = Tree(env, B, S, dev)
-    # the first move's root; each tail writes the next one's
-    obs = ops.root_obs(env, board, player, rec_obs[0]) if M else None
+    with span("search.prepare"):
+        board = boards.to(torch.int8).contiguous().clone()
+        player = players.to(torch.int32).contiguous().clone()
+        mc = move_counts.to(torch.int32).contiguous().clone()
+        rec = {name: torch.zeros((M, B, A) if name == "policy" else (M, B),
+                                 dtype=dt, device=dev)
+               for name, dt in _REC_TYPES.items()}
+        rec_obs = torch.zeros((M, B, F, R, C), dtype=torch.int8, device=dev)
+        tree = Tree(env, B, S, dev)
+        # the first move's root; each tail writes the next one's
+        obs = ops.root_obs(env, board, player, rec_obs[0]) if M else None
     for m in range(M):
-        probs0, value0 = evaluator(obs)
-        ops.root_init(env, cfg, tree, probs0, value0,
-                      noise[m] if cfg.use_dirichlet else None, board)
-        for slot in range(1, S):
-            ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
-            probs, value = evaluator(tree.obs)
-            ops.apply(tree, slot, probs, value)
-        obs = ops.move_tail(env, cfg, tree, unif[m], board, player, mc,
-                            {k: v[m] for k, v in rec.items()},
-                            rec_obs[m + 1] if m + 1 < M else None)
+        with span("search.move"):
+            with span("search.root"):
+                probs0, value0 = evaluator(obs)
+                ops.root_init(env, cfg, tree, probs0, value0,
+                              noise[m] if cfg.use_dirichlet else None, board)
+            with span("search.sims", S - 1):
+                for slot in range(1, S):
+                    ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
+                    probs, value = evaluator(tree.obs)
+                    ops.apply(tree, slot, probs, value)
+            with span("search.finish"):
+                obs = ops.move_tail(env, cfg, tree, unif[m], board, player,
+                                    mc, {k: v[m] for k, v in rec.items()},
+                                    rec_obs[m + 1] if m + 1 < M else None)
     out = dict(rec)
     out.update(obs=rec_obs, board=board, player_final=player, mc_final=mc)
     return out
@@ -1046,12 +1052,14 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
     On CUDA every stage runs as a CUDA kernel; on the CPU the wrappers run
     the plain versions.
     """
-    dev = resolve_device(device)
-    boards, players, move_counts, noise, unif = _inputs(
-        env, cfg, boards, players, move_counts, M, generator, noise, unif, dev)
-    if evaluator is None:
-        packed = pack_dense_params(model, params, dev)
-        evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
+    with span("search.prepare"):
+        dev = resolve_device(device)
+        boards, players, move_counts, noise, unif = _inputs(
+            env, cfg, boards, players, move_counts, M, generator, noise,
+            unif, dev)
+        if evaluator is None:
+            packed = pack_dense_params(model, params, dev)
+            evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
     return _chunk(DISPATCH, env, cfg, boards, players, move_counts, M, noise,
                   unif, evaluator)
 
@@ -1065,22 +1073,28 @@ def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
     """The move search's tree after its root (evaluated on the host) and
     simulations 1..S-1."""
     B = boards.shape[0]
-    board = boards.to(torch.int8).contiguous()
-    player = players.to(torch.int32).contiguous()
-    mc = move_counts.to(torch.int32).contiguous()
-    prior0, value0, live = root_prior(env, cfg, eval_fn, board, player, mc,
-                                      dones, use_dirichlet, noise)
-    tree = Tree(env, B, cfg.num_simulations, boards.device)
-    ops.move_root_init(tree, prior0, value0, live)
-    for slot in range(1, cfg.num_simulations):
-        ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
-        probs, value = evaluator(tree.obs)
-        ops.apply(tree, slot, probs, value)
+    S = cfg.num_simulations
+    with span("search.prepare"):
+        board = boards.to(torch.int8).contiguous()
+        player = players.to(torch.int32).contiguous()
+        mc = move_counts.to(torch.int32).contiguous()
+        tree = Tree(env, B, S, boards.device)
+    with span("search.root"):
+        prior0, value0, live = root_prior(env, cfg, eval_fn, board, player,
+                                          mc, dones, use_dirichlet, noise)
+        ops.move_root_init(tree, prior0, value0, live)
+    with span("search.sims", S - 1):
+        for slot in range(1, S):
+            ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
+            probs, value = evaluator(tree.obs)
+            ops.apply(tree, slot, probs, value)
     return tree
 
 
 def _move(ops, *args):
-    counts, policy, root_q = ops.root_counts(_move_tree(ops, *args))
+    tree = _move_tree(ops, *args)
+    with span("search.finish"):
+        counts, policy, root_q = ops.root_counts(tree)
     return SearchResult(visit_counts=counts, policy=policy, root_q=root_q)
 
 
@@ -1120,10 +1134,12 @@ def run_mcts_fused(env, model, params, eval_fn, boards, players, move_counts,
     ``root_q (B,)``.  On CUDA every stage of the search runs as a CUDA
     kernel; on the CPU the wrappers run the plain versions.
     """
-    dev = resolve_device(device)
-    args = search_inputs(env, cfg, boards, players, move_counts, dones,
-                         generator, use_dirichlet, noise, dev)
-    if evaluator is None:
-        packed = pack_dense_params(model, params, dev)
-        evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
-    return _move(DISPATCH, env, cfg, eval_fn, *args, evaluator)
+    with span("search.move"):
+        with span("search.prepare"):
+            dev = resolve_device(device)
+            args = search_inputs(env, cfg, boards, players, move_counts,
+                                 dones, generator, use_dirichlet, noise, dev)
+            if evaluator is None:
+                packed = pack_dense_params(model, params, dev)
+                evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
+        return _move(DISPATCH, env, cfg, eval_fn, *args, evaluator)

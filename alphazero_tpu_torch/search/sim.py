@@ -57,6 +57,7 @@ from alphazero_tpu_torch.search.mcts import (SearchResult, descend,
                                              leaf_finish, prep_priors,
                                              search_inputs, search_result)
 from alphazero_tpu_torch.search.tree import Tree, init_tree
+from alphazero_tpu_torch.utils.profiling import span
 
 # columns of the leaf record ``meta``
 M_DEPTH, M_PARENT, M_ACTION, M_ALLOC, M_LEAF, M_TERMINAL, M_WON, M_PLAYER = \
@@ -283,27 +284,36 @@ def _search_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
     B = boards.shape[0]
     S = cfg.num_simulations
     dev = boards.device
-    tree = init_tree(env, boards, players, move_counts, S)
-    expand_root(env, cfg, tree, eval_fn, dones.to(torch.bool), use_dirichlet,
-                noise, None)
-    st = SimState.create(env, B, S, dev)
-    probs = torch.zeros((B, env.action_dim), dtype=torch.float32, device=dev)
-    value = torch.zeros((B,), dtype=torch.float32, device=dev)
-    for slot in range(1, S):
-        ops.sim_step(env, cfg, tree, st, probs, value, slot - 1, slot)
-        probs, value = eval_fn(st.obs)
-        probs = probs.to(torch.float32).contiguous()
-        value = value.to(torch.float32).contiguous()
+    with span("search.prepare"):
+        tree = init_tree(env, boards, players, move_counts, S)
+        st = SimState.create(env, B, S, dev)
+        probs = torch.zeros((B, env.action_dim), dtype=torch.float32,
+                            device=dev)
+        value = torch.zeros((B,), dtype=torch.float32, device=dev)
+    with span("search.root"):
+        expand_root(env, cfg, tree, eval_fn, dones.to(torch.bool),
+                    use_dirichlet, noise, None)
+    with span("search.sims", S - 1):
+        for slot in range(1, S):
+            ops.sim_step(env, cfg, tree, st, probs, value, slot - 1, slot)
+            probs, value = eval_fn(st.obs)
+            probs = probs.to(torch.float32).contiguous()
+            value = value.to(torch.float32).contiguous()
     if S > 1:
-        ops.flush(env, tree, st, probs, value, S - 1)
+        with span("search.finish"):
+            ops.flush(env, tree, st, probs, value, S - 1)
     return tree
 
 
 def _search(ops, env, cfg, eval_fn, boards, players, move_counts, dones,
             generator, use_dirichlet, noise, dev) -> SearchResult:
-    args = search_inputs(env, cfg, boards, players, move_counts, dones,
-                         generator, use_dirichlet, noise, dev)
-    return search_result(_search_tree(ops, env, cfg, eval_fn, *args))
+    with span("search.move"):
+        with span("search.prepare"):
+            args = search_inputs(env, cfg, boards, players, move_counts,
+                                 dones, generator, use_dirichlet, noise, dev)
+        tree = _search_tree(ops, env, cfg, eval_fn, *args)
+        with span("search.finish"):
+            return search_result(tree)
 
 
 def sim_search_reference(env, eval_fn, boards, players, move_counts, dones,

@@ -44,6 +44,7 @@ from alphazero_tpu_torch.training.selfplay import (init_selfplay,
                                                    make_selfplay_runner)
 from alphazero_tpu_torch.utils.checkpoint import CheckpointManager
 from alphazero_tpu_torch.utils.metrics import MetricsLogger
+from alphazero_tpu_torch.utils.profiling import span
 
 SELFPLAY_CHUNK_STEPS = 32
 TRAIN_CHUNK_STEPS = 32
@@ -253,11 +254,14 @@ class Trainer:
         games = t.games_per_iter
         if self.reject_count >= t.reject_double_after:
             games *= 2
-        cm = self.collect(games)
-        tm = self.train_epoch()
+        with span("train.collect"):
+            cm = self.collect(games)
+        with span("train.epoch"):
+            tm = self.train_epoch()
         t0 = time.perf_counter()
-        rate = self.gate()
-        self._sync()
+        with span("train.gate"):
+            rate = self.gate()
+            self._sync()
         gate_seconds = time.perf_counter() - t0
         accepted = rate > t.gate_threshold
         extra = {}
@@ -265,7 +269,8 @@ class Trainer:
             self.params_best = _copy(self.params_new)
             self.version += 1
             self.reject_count = 0
-            self.save_checkpoint()
+            with span("train.checkpoint"):
+                self.save_checkpoint()
             if vanilla_eval and self.version % t.vanilla_eval_every == 0:
                 extra["vanilla_win_rate"] = self.vanilla_sanity_match()
         else:

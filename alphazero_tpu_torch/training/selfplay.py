@@ -33,6 +33,7 @@ from alphazero_tpu_torch.models import make_eval_fn
 from alphazero_tpu_torch.search.fused import (run_selfplay_chunk,
                                               supports_chunk)
 from alphazero_tpu_torch.search.mcts import first_argmax, run_mcts
+from alphazero_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -75,14 +76,22 @@ def selfplay_chunk(env, model, params, mcts_cfg: MCTSConfig,
     record of the chunk wins, and finished games flush per done event (a
     game can finish at most ``1 + (M-1)//min_len`` times in a chunk).
     Returns the new ``(sp, buffer)``; the buffer is updated in place."""
-    s = sp.env_state
-    dev = s.board.device
+    with span("selfplay.chunk"):
+        s = sp.env_state
+        rec = run_selfplay_chunk(env, model, params, s.board,
+                                 s.current_player, s.move_count, mcts_cfg,
+                                 num_steps, generator=sp.generator,
+                                 evaluator=evaluator, device=s.board.device)
+        with span("replay.write"):
+            return _record_chunk(env, sp, buffer, rec, num_steps)
+
+
+def _record_chunk(env, sp: SelfPlayState, buffer: ReplayBuffer, rec,
+                  M: int):
+    """The chunk's records ``rec`` of M moves folded into the slabs, its
+    finished games into the ring: the new ``(sp, buffer)``."""
+    dev = sp.env_state.board.device
     B, L = sp.traj_policy.shape[:2]
-    M = num_steps
-    rec = run_selfplay_chunk(env, model, params, s.board, s.current_player,
-                             s.move_count, mcts_cfg, M,
-                             generator=sp.generator, evaluator=evaluator,
-                             device=dev)
     obs_flat = rec["obs"].reshape(M, B, -1)
     ar = torch.arange(B, device=dev)[:, None]
     lr = torch.arange(L, device=dev)
@@ -143,12 +152,23 @@ def selfplay_step(env, eval_fn, mcts_cfg: MCTSConfig, sp: SelfPlayState,
     ``argmax(log π + gumbel)`` over the visited actions (the JAX package's
     ``jax.random.categorical``), after it the first most-visited action.
     Returns the new ``(sp, buffer)``; the buffer is updated in place."""
+    with span("selfplay.step"):
+        s = sp.env_state
+        res = run_mcts(env, eval_fn, s.board, s.current_player, s.move_count,
+                       s.done, mcts_cfg, generator=sp.generator, noise=noise,
+                       device=s.board.device)
+        with span("replay.write"):
+            return _record_step(env, mcts_cfg, sp, buffer, res, gumbel)
+
+
+def _record_step(env, mcts_cfg: MCTSConfig, sp: SelfPlayState,
+                 buffer: ReplayBuffer, res, gumbel):
+    """The move chosen from the search ``res``, played, recorded in its
+    game's slab, finished games flushed into the ring: the new ``(sp,
+    buffer)``."""
     s = sp.env_state
     dev = s.board.device
     B, L = sp.traj_policy.shape[:2]
-    res = run_mcts(env, eval_fn, s.board, s.current_player, s.move_count,
-                   s.done, mcts_cfg, generator=sp.generator, noise=noise,
-                   device=dev)
     obs = env.observation(s).to(torch.int8)
     logits = torch.where(res.visit_counts > 0,
                          torch.log(torch.clamp(res.policy, min=1e-30)),

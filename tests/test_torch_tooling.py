@@ -217,13 +217,14 @@ def test_import_buffer_rows_match_jax(size, cursor, dest_blocks, tmp_path,
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    from alphazero_tpu_torch.utils.profiling import annotate, trace
+    from alphazero_tpu_torch.utils.profiling import span, spans, trace
     with trace(str(tmp_path / "prof")):
-        with annotate("matmul"):
+        with span("matmul"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     files = list((tmp_path / "prof").glob("trace-*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "matmul" for e in events)
+    assert [s.name for s in spans()] == ["matmul"]
     with trace(None):                   # no directory: nothing recorded
         pass
