@@ -26,6 +26,13 @@ mlp_fc1/mlp_fc2``, ``norm``, ``policy_head``, ``value_head``), so that
 blocks by name.  The attention projections are ``nn.Linear(E, E)``: flax's
 ``(E, H, Dh)`` query/key/value kernels and ``(H, Dh, E)`` out kernel,
 flattened and transposed.
+
+The search evaluates it through ``models.make_eval_fn``'s
+``Evaluator``: on the card, from a batch shape's ``CAPTURE_AT``-th call
+on, the forward is replayed as a CUDA graph of these same kernels (the
+host no longer launches its ops one by one); each call returns fresh
+copies of the graph's outputs, and the graph reads the parameter
+tensors the evaluator was built with.
 """
 
 from __future__ import annotations

@@ -127,7 +127,11 @@ class TPViT(ViT):
     """``model``'s architecture with every block split over ``mesh``'s
     model ranks; its parameters are this rank's slices
     (``parallel.mesh.shard_vit_params``), passed in as the replicated
-    model's are (``functional_call``)."""
+    model's are (``functional_call``).  Its forward all-reduces over the
+    model group, so ``models.Evaluator`` never captures it in a CUDA
+    graph (``runs_collectives``)."""
+
+    runs_collectives = True
 
     def __init__(self, model: ViT, mesh):
         M = mesh.n_model

@@ -281,7 +281,10 @@ def device_profile(fn, names=False):
     if stop_error is not None:
         log(f"[profile] torch.profiler failed ({stop_error})")
         return None
-    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a host span is mirrored on the device's timeline as an annotation (a
+    # replayed CUDA graph's ``model.graph``): not an operation
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     if not kev:
         return None
     per = {}

@@ -1335,3 +1335,123 @@ def test_vit_forward_on_the_card_close_to_cpu(dev, dtype, tol):
         model_d, {k: v.to(dev) for k, v in params.items()}, (obs.to(dev),))
     for a, b in zip(got, want):
         assert float((a.float().cpu() - b.float()).abs().max()) <= tol
+
+
+def _graph_model(name, dev, seed=0):
+    """The preset's network and fresh weights on the card."""
+    from alphazero_tpu_torch.config import preset
+    cfg = preset(name)
+    env = make_env(cfg.env)
+    model = build_model(cfg.model, env).to(dev)
+    params = {k: v.to(dev) for k, v in init_params(
+        model, torch.Generator().manual_seed(seed)).items()}
+    return env, model, params
+
+
+def _graph_obs(env, B, seed, dev):
+    return env.observation_from_board(*_positions(env, B, seed, dev))
+
+
+@pytest.mark.parametrize("name,B", [("gomoku7-reference", 256),
+                                    ("gomoku7-reference", 1),
+                                    ("connect4", 1)])
+def test_graphed_evaluator_equals_the_eager_forward(dev, name, B):
+    """From the shape's CAPTURE_AT-th call on, the evaluator replays a CUDA
+    graph, whose outputs equal the eager forward's bit for bit: the ViT of
+    ``gomoku7-reference`` at self-play's B=256 and at B=1, the connect4
+    dense tower at the root's B=1."""
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    env, model, params = _graph_model(name, dev)
+    ev = make_eval_fn(model, params)
+    calls = CAPTURE_AT + 3
+    for k in range(calls):
+        obs = _graph_obs(env, B, 100 + k, dev)
+        probs, value = ev(obs)
+        with torch.no_grad():
+            want_p, want_v = ev.forward(obs)
+        gap = max(float((probs - want_p).abs().max()),
+                  float((value - want_v).abs().max()))
+        assert torch.equal(probs, want_p) and torch.equal(value, want_v), (
+            k, gap)
+    assert (ev.captures, ev.replays) == (1, calls - CAPTURE_AT + 1)
+
+
+def test_graphed_outputs_are_not_changed_by_the_next_call(dev):
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    env, model, params = _graph_model("gomoku7-reference", dev)
+    ev = make_eval_fn(model, params)
+    for k in range(CAPTURE_AT):
+        ev(_graph_obs(env, 256, k, dev))
+    assert ev.captures == 1
+    p1, v1 = ev(_graph_obs(env, 256, 50, dev))
+    keep = (p1.clone(), v1.clone())
+    p2, v2 = ev(_graph_obs(env, 256, 51, dev))
+    torch.cuda.synchronize()
+    assert torch.equal(p1, keep[0]) and torch.equal(v1, keep[1])
+    assert not torch.equal(p1, p2)
+    assert p1.data_ptr() != p2.data_ptr()
+
+
+def test_graph_sees_an_in_place_parameter_update(dev):
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    env, model, params = _graph_model("gomoku7-reference", dev)
+    ev = make_eval_fn(model, params)
+    obs = _graph_obs(env, 256, 7, dev)
+    for _ in range(CAPTURE_AT):
+        before = ev(obs)
+    assert ev.captures == 1
+    with torch.no_grad():
+        for w in params.values():
+            w.mul_(1.25).add_(0.01)
+    p, v = ev(obs)
+    with torch.no_grad():
+        want_p, want_v = ev.forward(obs)
+    assert torch.equal(p, want_p) and torch.equal(v, want_v)
+    assert not torch.equal(p, before[0])
+    assert ev.replays == 2
+
+
+def test_graph_capture_and_replay_under_the_profiler(dev):
+    """As in the benchmark's traced stretch: a fresh evaluator captures
+    and replays while a torch.profiler records the card, every replay is
+    a ``model.graph`` span, and the outputs are the eager forward's."""
+    from torch.profiler import ProfilerActivity, profile
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.utils import profiling
+    env, model, params = _graph_model("gomoku7-reference", dev)
+    ev = make_eval_fn(model, params)
+    obs = [_graph_obs(env, 256, 20 + k, dev) for k in range(CAPTURE_AT + 2)]
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [ev(o) for o in obs]
+        torch.cuda.synchronize()
+    t = profiling.totals()
+    profiling.reset()
+    assert ev.captures == 1 and ev.replays == 3
+    assert t["model.forward"][0] == len(obs)
+    assert t["model.graph"][0] == ev.replays
+    from torch.autograd import DeviceType
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+    with torch.no_grad():
+        for o, (p, v) in zip(obs, outs):
+            want_p, want_v = ev.forward(o)
+            assert torch.equal(p, want_p) and torch.equal(v, want_v)
+
+
+def test_a_model_that_runs_collectives_is_never_captured_on_the_card(dev):
+    """``TPViT`` all-reduces inside its forward: a model flagged as it is
+    flagged keeps the eager forward on the card."""
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.parallel import TPViT
+    assert TPViT.runs_collectives
+    env, model, params = _graph_model("gomoku7-reference", dev)
+    model.runs_collectives = True
+    ev = make_eval_fn(model, params)
+    obs = _graph_obs(env, 256, 3, dev)
+    for _ in range(CAPTURE_AT + 2):
+        p, v = ev(obs)
+    with torch.no_grad():
+        want_p, _ = ev.forward(obs)
+    assert (ev.captures, ev.replays) == (0, 0)
+    assert torch.equal(p, want_p)
