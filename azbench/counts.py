@@ -10,6 +10,7 @@ whatever a kernel reads again or pads.
 
 from __future__ import annotations
 
+from azbench.reference import nets
 from azbench.reference.games import Game, line_cells
 
 PEAK_BF16 = 989e12
@@ -26,27 +27,10 @@ def bound_s(nbytes: float, bf16_ops: float = 0.0, f32_ops: float = 0.0):
 
 
 def model_flops_per_pos(model: dict, g: Game) -> float:
-    """Forward FLOPs of one position: the products' multiply-adds × 2 (the
-    heads and the ViT's patch rows counted as the root bench of the repo
-    counts them)."""
-    RC = g.cells
-    if model["family"] == "dense":
-        L = len(line_cells(g.rows, g.cols, g.win_len))
-        d_in = g.feature_dim * RC + 2 * L
-        w = model["width"]
-        f = d_in * w + 2 * model["blocks"] * w * w \
-            + w * (g.action_dim + w // 4)
-        return 2.0 * f
-    if model["family"] == "resnet":
-        c, nb = model["channels"], model["blocks"]
-        f = 9 * g.feature_dim * c * RC + nb * 2 * 9 * c * c * RC \
-            + 2 * c * RC + 32 * RC
-        return 2.0 * f
-    E, D = model["embed_dim"], model["depth"]
-    T = RC + 1
-    f = model["patch_size"] ** 2 * g.feature_dim * E * RC \
-        + D * (4 * E * E * T + 2 * T * T * E + 8 * E * E * T)
-    return 2.0 * f
+    """Forward FLOPs of one position: ``flops_per_pos`` of the model's
+    family file (``azbench/reference/families/<family>.py``); raises
+    ValueError for a family that has no file."""
+    return nets.family(model["family"]).flops_per_pos(model, g)
 
 
 def dense_forward_bound(model: dict, g: Game, B: int):

@@ -5,6 +5,9 @@ one per-layer metric is a file of its own, found by its name:
 
 * ``azbench/configs/<config>.json``: the configuration as it is run (the
   port's ``Config`` fields under ``"config"``) and its reference notes;
+* ``azbench/reference/families/<family>.py``: the plain reference network
+  of a model family, named by a configuration's ``model["family"]``, with
+  its parameters and its FLOPs a position (``azbench/reference/nets.py``);
 * ``azbench/traffic/<traffic>.json``: the mix's parameters and the name of
   the driver (``azbench/drivers/<driver>.py``) that plays it;
 * ``azbench/workloads/<cell>.json``: the cell's limits of correctness;

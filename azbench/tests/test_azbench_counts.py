@@ -10,6 +10,10 @@ C4 = {"family": "dense", "width": 512, "blocks": 2}
 VIT = {"family": "vit", "embed_dim": 512, "depth": 1, "patch_size": 5}
 
 
+def resnet(channels, blocks):
+    return {"family": "resnet", "channels": channels, "blocks": blocks}
+
+
 def test_dense_forward_bound_connect4():
     """0.00135 ms at connect4 B=512, bound by operations (PERF.md §6)."""
     s, by = counts.dense_forward_bound(C4, game("connect4"), 512)
@@ -25,7 +29,11 @@ def test_sim_step_bound_gomoku7():
 
 
 @pytest.mark.parametrize("model,env,flops", [
-    (C4, "connect4", 2_505_728.0), (VIT, "gomoku", 322_201_600.0)])
+    (C4, "connect4", 2_505_728.0), (VIT, "gomoku", 322_201_600.0),
+    # the gomoku15 preset, the connect4-resnet preset, AlphaZero's widths
+    (resnet(192, 10), "gomoku15", 2_987_726_400.0),
+    (resnet(64, 4), "connect4", 24_931_200.0),
+    (resnet(256, 19), "gomoku15", 10_088_308_800.0)])
 def test_model_flops(model, env, flops):
     assert counts.model_flops_per_pos(model, game(env)) == flops
 

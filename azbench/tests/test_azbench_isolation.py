@@ -14,9 +14,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "alphazero_tpu"}
 
 
 def test_harness_and_drivers_load_no_jax():
-    """Import the harness, every driver, metric reader and what the
-    drivers import of the program in a fresh process: no loaded module's
-    top-level name is JAX's or the JAX package's."""
+    """Import the harness, every driver, metric reader, reference family
+    and what the drivers import of the program in a fresh process: no
+    loaded module's top-level name is JAX's or the JAX package's."""
     code = (
         "import sys\n"
         "from azbench import run, harness, trace, check, counts, spec\n"
@@ -27,6 +27,9 @@ def test_harness_and_drivers_load_no_jax():
         "import alphazero_tpu_torch.search.fused\n"
         "for p in sorted((spec.HERE / 'metrics').glob('*.py')):\n"
         "    spec.reader(p.stem)\n"
+        "from azbench.reference import nets\n"
+        "for p in sorted(nets.FAMILIES.glob('*.py')):\n"
+        "    nets.family(p.stem)\n"
         "print(run.forbidden_modules())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -55,7 +58,7 @@ def _imports(path: Path) -> set:
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*(HERE / "reference").glob("*.py"), HERE / "counts.py",
+    [*(HERE / "reference").rglob("*.py"), HERE / "counts.py",
      HERE / "check.py", HERE / "weights.py"]), ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
     assert not _imports(path) & (FORBIDDEN | {"alphazero_tpu_torch"})

@@ -1,9 +1,11 @@
 """The benchmark's plain reference against alphazero_tpu_torch on the CPU, at
-a tiny size: the rules, the forwards and both search engines."""
+a tiny size: the rules, the forwards of every family and both search
+engines; and the lookup of a family's file."""
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import pytest
 import torch
@@ -14,6 +16,7 @@ from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.models import build_model
 from alphazero_tpu_torch.search import fused, sim
 from alphazero_tpu_torch.training.selfplay import init_selfplay, selfplay_step
+from azbench import counts
 from azbench.reference import games, nets, search
 from azbench.weights import make_params
 
@@ -72,13 +75,21 @@ def test_rules_match(env_name):
                        nxt.winner == st.current_player)
 
 
-@pytest.mark.parametrize("family", ["dense", "vit"])
+# each family's port module and the board it is held on
+PORT_MODELS = {
+    "dense": (ModelConfig(family="dense", width=64, blocks=2,
+                          compute_dtype="float32"), "connect4"),
+    "vit": (ModelConfig(family="vit", embed_dim=32, num_heads=4, depth=1,
+                        patch_size=5, compute_dtype="float32"), "gomoku"),
+    "resnet": (ModelConfig(family="resnet", channels=16, blocks=2,
+                           compute_dtype="float32"), "gomoku9"),
+}
+
+
+@pytest.mark.parametrize("family", ["dense", "vit", "resnet"])
 def test_forward_matches_port(family):
-    env_name = "connect4" if family == "dense" else "gomoku"
+    mcfg, env_name = PORT_MODELS[family]
     env, g = make_env(env_name), games.game(env_name)
-    mcfg = ModelConfig(family=family, width=64, blocks=2, embed_dim=32,
-                       num_heads=4, depth=1, patch_size=5,
-                       compute_dtype="float32")
     model = build_model(mcfg, env)
     params = make_params(nets.param_specs(dataclasses.asdict(mcfg), g), 11,
                          torch.device("cpu"))
@@ -94,6 +105,114 @@ def test_forward_matches_port(family):
     torch.testing.assert_close(v, value, rtol=1e-4, atol=1e-5)
     p8, v8 = nets.Net(dataclasses.asdict(mcfg), g, params, "fp8")(obs)
     assert (p8 - probs).abs().max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_resnet_reference_on_the_card_matches_the_cpu():
+    """At gomoku15's width 192 × 10 blocks and B=256, where cuDNN's float32
+    convolutions read wrong, the ResNet reference on the card agrees with
+    the same reference on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    env, g = make_env("gomoku15"), games.game("gomoku15")
+    model = {"family": "resnet", "channels": 192, "blocks": 10}
+    gen = torch.Generator().manual_seed(5)
+    plies = torch.randint(0, 60, (256,), generator=gen).tolist()
+    st = random_positions(env, 256, gen, plies)
+    obs = env.observation_from_board(st.board, st.current_player)
+    params = make_params(nets.param_specs(model, g), 1, torch.device("cpu"))
+    probs, value = nets.Net(model, g, params)(obs)
+    dev = torch.device("cuda")
+    p, v = nets.Net(model, g, {k: t.to(dev) for k, t in params.items()})(
+        obs.to(dev))
+    torch.testing.assert_close(p.cpu(), probs, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v.cpu(), value, rtol=1e-4, atol=1e-5)
+
+
+def _digest(*xs) -> str:
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.contiguous().numpy().tobytes() if torch.is_tensor(x)
+                 else repr(x).encode())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("family,model,env_name,frozen", [
+    ("dense", {"family": "dense", "width": 64, "blocks": 2}, "connect4",
+     ("e1141778b6306b8f", "7c593e3d6cbaed13", "d84b84c969903d16")),
+    ("vit", {"family": "vit", "embed_dim": 32, "num_heads": 4, "depth": 1,
+             "patch_size": 5}, "gomoku",
+     ("52e258bc9850c138", "4174830d89b39d23", "aec4264f443beae8")),
+])
+def test_family_reproduces_frozen(family, model, env_name, frozen):
+    """Digests of the parameter specs and of the exact float32 CPU outputs
+    (float32 and fp8) that the dense and ViT references gave before they
+    moved into their family files."""
+    g = games.game(env_name)
+    specs = nets.param_specs(model, g)
+    params = make_params(specs, 11, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(5)
+    obs = (torch.rand((8, g.feature_dim, g.rows, g.cols), generator=gen)
+           < 0.3).float()
+    got = (_digest(specs), _digest(*nets.Net(model, g, params)(obs)),
+           _digest(*nets.Net(model, g, params, "fp8")(obs)))
+    assert got == frozen
+
+
+def test_unknown_family_raises():
+    """A family with no file is refused everywhere, never run or counted as
+    another family."""
+    g = games.game("gomoku")
+    model = {"family": "mlp_mixer", "embed_dim": 32, "depth": 1,
+             "patch_size": 5}
+    for call in (lambda: nets.param_specs(model, g),
+                 lambda: nets.Net(model, g, {}),
+                 lambda: counts.model_flops_per_pos(model, g)):
+        with pytest.raises(ValueError, match=r"families/mlp_mixer\.py"):
+            call()
+    with pytest.raises(ValueError, match="not a file"):
+        nets.family("../nets")
+
+
+TOY_FAMILY = '''
+import torch
+
+from azbench.reference.nets import linear_specs
+
+
+def param_specs(model, g):
+    return linear_specs("head", g.action_dim + 1, g.feature_dim * g.cells)
+
+
+def forward(net, obs):
+    out = net._linear(obs.reshape(obs.shape[0], -1), "head")
+    return out[:, :-1], torch.tanh(out[:, -1])
+
+
+def flops_per_pos(model, g):
+    return 2.0 * (g.action_dim + 1) * g.feature_dim * g.cells
+'''
+
+
+def test_family_file_found_in_directory(tmp_path):
+    """A family file in another directory is found by its name through the
+    lookup's directory argument, and a Net runs its forward."""
+    (tmp_path / "toy.py").write_text(TOY_FAMILY)
+    g, model = games.game("gomoku"), {"family": "toy"}
+    toy = nets.family("toy", tmp_path)
+    specs = toy.param_specs(model, g)
+    assert specs == [("head.weight", (50, 98), "lecun"),
+                     ("head.bias", (50,), "zeros")]
+    assert toy.flops_per_pos(model, g) == 9800.0
+    params = make_params(specs, 3, torch.device("cpu"))
+    obs = torch.zeros((2, 2, 7, 7))
+    obs[:, 0, 3, 3] = 1.0
+    probs, value = nets.Net(model, g, params, directory=tmp_path)(obs)
+    assert probs.shape == (2, 49) and value.shape == (2,)
+    w = params["head.weight"]
+    torch.testing.assert_close(value, torch.tanh(w[-1, 24]).expand(2))
+    with pytest.raises(ValueError):
+        nets.param_specs(model, g)
 
 
 def test_chunk_search_matches_port():
