@@ -107,16 +107,58 @@ def port_config(run: Run):
     return from_json(json.dumps(cfg))
 
 
+CALIBRATION_POSITIONS = 512
+
+
+def random_positions(g: games.Game, n: int, gen: torch.Generator,
+                     device) -> torch.Tensor:
+    """Observations ``(n, F, R, C)`` of ``n`` positions by the rules, each
+    from its own game of uniformly random legal moves that stops at a move
+    count drawn uniformly from 0 to ``max_moves // 2``, or at its end."""
+    half = g.max_moves // 2
+    stop = torch.randint(0, half + 1, (n,), generator=gen, device=device)
+    board = torch.zeros((n, 2, g.rows, g.cols), dtype=torch.int8,
+                        device=device)
+    moves = torch.zeros(n, dtype=torch.long, device=device)
+    ended = torch.zeros(n, dtype=torch.bool, device=device)
+    for _ in range(half):
+        live = (moves < stop) & ~ended
+        player = moves % 2
+        u = torch.rand((n, g.action_dim), generator=gen, device=device)
+        act = torch.where(g.legal(board), u, -1.0).argmax(-1)
+        after = g.play(board, player, act)
+        board = torch.where(live[:, None, None, None], after, board)
+        ended |= live & g.won(after, player)
+        moves += live.long()
+    return g.observation(board, moves % 2)
+
+
+def calibration_positions(run: Run) -> torch.Tensor:
+    """The positions a family's state is calibrated on, from the run's
+    seed (sub-seed 4, apart from the benchmark's other draws)."""
+    return random_positions(run.game, CALIBRATION_POSITIONS,
+                            run.generator(4), run.device)
+
+
 def weights(run: Run, model) -> dict:
-    """The run's weights, made on the device from its seed, checked
-    against the program's module parameter by parameter."""
+    """The run's weights, made on the device from its seed, with the
+    state of a family that carries it (``state`` of its file) calibrated
+    by the float32 reference on :func:`calibration_positions`: one dict,
+    checked by name and shape against the program's parameters and
+    persistent floating-point buffers (integer bookkeeping, such as batch
+    norm's ``num_batches_tracked``, is the program's own)."""
     params = make_params(nets.param_specs(run.model, run.game), run.seed,
                          run.device)
-    have = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    net = run.net(params)
+    if hasattr(net.family, "state"):
+        params.update(net.state(calibration_positions(run)))
+    have = {k: tuple(t.shape) for k, t in
+            model.state_dict(keep_vars=True).items() if t.is_floating_point()}
     want = {k: tuple(v.shape) for k, v in params.items()}
     if have != want:
-        raise RuntimeError(f"the program's parameters {have} are not the "
-                           f"configuration's {want}")
+        raise RuntimeError(f"the program's parameters and persistent float "
+                           f"buffers {have} are not the configuration's "
+                           f"{want}")
     return params
 
 

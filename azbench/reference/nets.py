@@ -11,12 +11,21 @@ new family adds a file and edits none.  A family file defines
   :class:`Net`, built from its parameters ``net.p``, its rounding
   ``net.q`` and its ``_linear`` and ``_ln``;
 * ``flops_per_pos(model, g)``: the forward FLOPs of one position, which
-  ``azbench.counts.model_flops_per_pos`` reports.
+  ``azbench.counts.model_flops_per_pos`` reports;
+* and, where the network carries state (per-layer tensors that are not
+  trained parameters, such as batch norm's running statistics),
+  ``state(net, obs) -> {name: float32 tensor}``: the family's layers run
+  with each batch norm normalising by the batch's own per-channel mean and
+  biased variance, which it returns under the names of the program's
+  buffers.  With them in ``net.p``, ``forward`` gives the same outputs on
+  that batch, up to float32 rounding.  The harness calibrates the state on
+  positions drawn from the seed (``azbench.harness.weights``) and hands it
+  to the program in one dict with the parameters.
 
-LayerNorm eps is 1e-6 (flax).  Parameters are a dict of float32 tensors.
-``precision="fp8"`` rounds both operands of every matrix product and
-convolution to float8 e4m3 with a per-tensor scale, the control of the
-benchmark's correctness check.
+LayerNorm eps is 1e-6 (flax).  Parameters and state are one dict of
+float32 tensors.  ``precision="fp8"`` rounds both operands of every matrix
+product and convolution to float8 e4m3 with a per-tensor scale, the
+control of the benchmark's correctness check; it rounds no state.
 """
 
 from __future__ import annotations
@@ -97,7 +106,8 @@ class Net:
         if precision not in ("float32", "fp8"):
             raise ValueError(precision)
         self.model, self.g = model, g
-        self.forward = family(model["family"], directory).forward
+        self.family = family(model["family"], directory)
+        self.forward = self.family.forward
         self.p = {k: v.float() for k, v in params.items()}
         self.q = fp8 if precision == "fp8" else (lambda t: t)
 
@@ -114,3 +124,9 @@ class Net:
         with ieee_float32():
             logits, value = self.forward(self, obs.float())
         return torch.softmax(logits, -1), value
+
+    @torch.no_grad()
+    def state(self, obs: torch.Tensor) -> dict:
+        """The family's state calibrated on the batch ``obs``."""
+        with ieee_float32():
+            return self.family.state(self, obs.float())

@@ -33,7 +33,10 @@ def test_sim_step_bound_gomoku7():
     # the gomoku15 preset, the connect4-resnet preset, AlphaZero's widths
     (resnet(192, 10), "gomoku15", 2_987_726_400.0),
     (resnet(64, 4), "connect4", 24_931_200.0),
-    (resnet(256, 19), "gomoku15", 10_088_308_800.0)])
+    (resnet(256, 19), "gomoku15", 10_088_308_800.0),
+    # AlphaZero's network with batch norm at its widths
+    ({"family": "resnet_bn", "channels": 256, "blocks": 19}, "gomoku15",
+     10_088_308_800.0)])
 def test_model_flops(model, env, flops):
     assert counts.model_flops_per_pos(model, game(env)) == flops
 

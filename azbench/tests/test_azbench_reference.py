@@ -16,7 +16,7 @@ from alphazero_tpu_torch.envs import make_env
 from alphazero_tpu_torch.models import build_model
 from alphazero_tpu_torch.search import fused, sim
 from alphazero_tpu_torch.training.selfplay import init_selfplay, selfplay_step
-from azbench import counts
+from azbench import counts, harness
 from azbench.reference import games, nets, search
 from azbench.weights import make_params
 
@@ -143,19 +143,30 @@ def _digest(*xs) -> str:
     ("vit", {"family": "vit", "embed_dim": 32, "num_heads": 4, "depth": 1,
              "patch_size": 5}, "gomoku",
      ("52e258bc9850c138", "4174830d89b39d23", "aec4264f443beae8")),
+    ("resnet_bn", {"family": "resnet_bn", "channels": 16, "blocks": 2},
+     "gomoku9", ("1db596d97eee73ba", "b5a39fcc200317af", "5d97cb1a5043eceb",
+                 "48512a73dc5a9890")),
 ])
 def test_family_reproduces_frozen(family, model, env_name, frozen):
     """Digests of the parameter specs and of the exact float32 CPU outputs
     (float32 and fp8) that the dense and ViT references gave before they
-    moved into their family files."""
+    moved into their family files; for a family with state, the outputs
+    on the state calibrated on the harness's positions, and that state."""
     g = games.game(env_name)
     specs = nets.param_specs(model, g)
     params = make_params(specs, 11, torch.device("cpu"))
     gen = torch.Generator().manual_seed(5)
     obs = (torch.rand((8, g.feature_dim, g.rows, g.cols), generator=gen)
            < 0.3).float()
+    net = nets.Net(model, g, params)
+    state = net.state(harness.random_positions(
+        g, harness.CALIBRATION_POSITIONS, torch.Generator().manual_seed(4),
+        torch.device("cpu"))) if hasattr(net.family, "state") else {}
+    params.update(state)
     got = (_digest(specs), _digest(*nets.Net(model, g, params)(obs)),
            _digest(*nets.Net(model, g, params, "fp8")(obs)))
+    if state:
+        got += (_digest(*state, *state.values()),)
     assert got == frozen
 
 

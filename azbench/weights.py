@@ -5,8 +5,11 @@ parameter of ``reference.nets.param_specs`` from ONE normal draw of a
 generator on ``device``: a ``lecun`` kernel is that draw cut at ±2 and
 scaled by ``1 / (0.8796·√fan-in)`` (the spread of flax's truncated LeCun
 normal), a ``normal`` one (the ViT's CLS token and position embedding) is
-the draw itself; biases are 0 and LayerNorm scales 1.  The same seed gives
-the same weights on the same kind of device.
+the draw itself; biases are 0 and LayerNorm and batch-norm scales 1.  The
+same seed gives the same weights on the same kind of device.  A network's
+state (batch norm's running statistics) is not drawn: the harness
+calibrates it on positions drawn from the seed
+(``azbench.harness.weights``).
 """
 
 from __future__ import annotations
