@@ -18,7 +18,9 @@ the tail of each move writes that of the next one.
 The move search (:func:`run_mcts_fused`, what the arena and the gate run)
 evaluates and mixes the root on the host, initialises the tree from that
 prior with finished games left unexpanded, runs the same S−1 simulations
-and returns the root counts, policy and root Q.
+and returns the root counts, policy and root Q.  On the card, with its own
+forward, it replays those simulations as one CUDA graph per search shape
+(:class:`MoveGraphs`).
 
 Both serve every game whose board and actions the kernels take, with the
 game's move rules (``env.rules``): connect4's gravity, tictactoe's empty
@@ -78,6 +80,7 @@ from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import (RULES_GRAVITY,
                                            RULES_NEIGHBOURHOOD,
                                            _make_line_matrix, line_cells)
+from alphazero_tpu_torch.models import CAPTURE_AT, MAX_GRAPHS
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
 from alphazero_tpu_torch.ops.build import load as load_lib
@@ -1068,31 +1071,166 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
 # the move search (the arena's and the gate's search)
 # ---------------------------------------------------------------------------
 
+def _simulate(ops, env, cfg: MCTSConfig, tree: Tree, board, player, mc,
+              evaluator):
+    """Simulations 1..S-1 of the move search: a fixed chain of launches
+    that never reads the device."""
+    for slot in range(1, cfg.num_simulations):
+        ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
+        probs, value = evaluator(tree.obs)
+        ops.apply(tree, slot, probs, value)
+
+
+class _MoveEntry:
+    """The fixed addresses of one key's captured simulations: its tree,
+    the search's board, player and move counts, the packed weights, and
+    the graph's replay (None until captured)."""
+
+    def __init__(self, env, S: int, board, player, mc, packed: dict):
+        self.tree = Tree(env, board.shape[0], S, board.device)
+        self.board = torch.empty_like(board)
+        self.player = torch.empty_like(player)
+        self.mc = torch.empty_like(mc)
+        self.packed = {k: torch.empty_like(v) if torch.is_tensor(v) else v
+                       for k, v in packed.items()}
+        self._weights = [k for k, v in packed.items() if torch.is_tensor(v)]
+        self.replay = None
+
+    def load(self, board, player, mc, packed: dict):
+        """Copy one search's inputs and weights to the fixed addresses (one
+        host call for all of them)."""
+        torch._foreach_copy_(
+            [self.board, self.player, self.mc]
+            + [self.packed[k] for k in self._weights],
+            [board, player, mc] + [packed[k] for k in self._weights])
+
+    def forward(self, obs):
+        return dense_forward(obs, self.packed)
+
+
+class MoveGraphs:
+    """The move search's simulations 1..S-1 replayed as one CUDA graph per
+    search shape.
+
+    A search on CUDA tensors that runs the dense kernel's own forward
+    (``run_mcts_fused`` without an ``evaluator``) looks up its key: the
+    device, B, S, the game's geometry and rules, the formula, ``c_puct``
+    and the tower's widths, all that the captured launches bake in.  A
+    key's ``CAPTURE_AT``-th search captures the chain (a warm-up and the
+    capture on a side stream) on a tree of the key's own, and that search
+    and every later one at the key copy their board, player, move counts
+    and packed weights to the entry's fixed addresses, initialise the
+    root on its tree (which resets it: every other row is rewritten
+    before it is read) and replay the graph, a ``search.graph`` span
+    inside ``search.sims``.  Every other search, and every search on the
+    CPU, runs the chain eagerly on a fresh tree.  The weights are copied
+    on every search, so a swapped or updated params dict is seen.  At most
+    ``MAX_GRAPHS`` keys are held.  ``captures`` and ``replays`` count the
+    graphs made and the searches that replayed one.  The process has one
+    cache, :data:`MOVE_GRAPHS`, so the searches of every caller at one
+    shape (the gate's two players, a game's agent moves) share an entry."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self._calls = {}
+        self._entries = {}
+
+    def _engages(self, board) -> bool:
+        return board.is_cuda
+
+    def _capture(self, chain, device):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            # warm up and capture on a side stream, as torch.cuda.graphs
+            # prescribes; the wrappers launch on the current stream
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                chain()
+            # thread_local: a profiler's own threads may call CUDA meanwhile
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                chain()
+            torch.cuda.current_stream().wait_stream(side)
+        return graph.replay
+
+    @staticmethod
+    def key(env, cfg: MCTSConfig, board, packed: dict) -> tuple:
+        # the tree's dcap follows from max_moves and S
+        return (board.device, board.shape[0], cfg.num_simulations,
+                env.rows, env.cols, env.feature_dim, env.action_dim,
+                env.max_moves, env.rules, tuple(env.lines.shape),
+                cfg.formula, float(cfg.c_puct), _dense_widths(packed),
+                packed["w1"].shape[0], tuple(packed["lines"].shape))
+
+    def entry(self, env, cfg: MCTSConfig, board, player, mc, packed: dict):
+        """The key's entry with this search's inputs loaded, or None where
+        the search runs eagerly."""
+        if not self._engages(board):
+            return None
+        key = self.key(env, cfg, board, packed)
+        e = self._entries.get(key)
+        if e is None:
+            if len(self._entries) >= MAX_GRAPHS:
+                return None
+            n = self._calls[key] = self._calls.get(key, 0) + 1
+            if n < CAPTURE_AT:
+                return None
+            e = self._entries[key] = _MoveEntry(env, cfg.num_simulations,
+                                                board, player, mc, packed)
+        e.load(board, player, mc, packed)
+        return e
+
+    def capture(self, chain, device):
+        """Capture ``chain`` (the key's simulations on its entry) on
+        ``device``; returns the replay."""
+        self.captures += 1
+        return self._capture(chain, device)
+
+
+MOVE_GRAPHS = MoveGraphs()
+
+
 def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
-               move_counts, dones, use_dirichlet, noise, evaluator) -> Tree:
+               move_counts, dones, use_dirichlet, noise, evaluator,
+               packed=None) -> Tree:
     """The move search's tree after its root (evaluated on the host) and
-    simulations 1..S-1."""
+    simulations 1..S-1.  With ``packed``, the weights ``evaluator`` runs
+    the dense kernel on, the simulations may replay a graph of
+    :data:`MOVE_GRAPHS`; the tree is then the graph's, and holds this
+    search only until the next one at its key."""
     B = boards.shape[0]
     S = cfg.num_simulations
     with span("search.prepare"):
         board = boards.to(torch.int8).contiguous()
         player = players.to(torch.int32).contiguous()
         mc = move_counts.to(torch.int32).contiguous()
-        tree = Tree(env, B, S, boards.device)
+        entry = (None if packed is None
+                 else MOVE_GRAPHS.entry(env, cfg, board, player, mc, packed))
+        tree = Tree(env, B, S, boards.device) if entry is None else entry.tree
     with span("search.root"):
         prior0, value0, live = root_prior(env, cfg, eval_fn, board, player,
                                           mc, dones, use_dirichlet, noise)
         ops.move_root_init(tree, prior0, value0, live)
     with span("search.sims", S - 1):
-        for slot in range(1, S):
-            ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
-            probs, value = evaluator(tree.obs)
-            ops.apply(tree, slot, probs, value)
+        if entry is None:
+            _simulate(ops, env, cfg, tree, board, player, mc, evaluator)
+        else:
+            if entry.replay is None:
+                entry.replay = MOVE_GRAPHS.capture(functools.partial(
+                    _simulate, ops, env, cfg, tree, entry.board,
+                    entry.player, entry.mc, entry.forward), board.device)
+                # the warm-up ran the chain on the tree: start it afresh
+                ops.move_root_init(tree, prior0, value0, live)
+            MOVE_GRAPHS.replays += 1
+            with span("search.graph"):
+                entry.replay()
     return tree
 
 
-def _move(ops, *args):
-    tree = _move_tree(ops, *args)
+def _move(ops, *args, packed=None):
+    tree = _move_tree(ops, *args, packed=packed)
     with span("search.finish"):
         counts, policy, root_q = ops.root_counts(tree)
     return SearchResult(visit_counts=counts, policy=policy, root_q=root_q)
@@ -1132,14 +1270,19 @@ def run_mcts_fused(env, model, params, eval_fn, boards, players, move_counts,
     and backs up its terminal score, so its counts stay 0.  Returns a
     ``SearchResult`` with ``visit_counts (B, A)`` int32, ``policy`` and
     ``root_q (B,)``.  On CUDA every stage of the search runs as a CUDA
-    kernel; on the CPU the wrappers run the plain versions.
+    kernel; on the CPU the wrappers run the plain versions.  Without an
+    ``evaluator`` the simulations on CUDA go through :data:`MOVE_GRAPHS`:
+    from a shape's ``CAPTURE_AT``-th search on they replay one CUDA graph
+    of the same launches.  The returned tensors are fresh.
     """
     with span("search.move"):
         with span("search.prepare"):
             dev = resolve_device(device)
             args = search_inputs(env, cfg, boards, players, move_counts,
                                  dones, generator, use_dirichlet, noise, dev)
+            packed = None
             if evaluator is None:
                 packed = pack_dense_params(model, params, dev)
                 evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
-        return _move(DISPATCH, env, cfg, eval_fn, *args, evaluator)
+        return _move(DISPATCH, env, cfg, eval_fn, *args, evaluator,
+                     packed=packed)

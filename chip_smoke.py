@@ -45,7 +45,9 @@ Phases (any failure exits non-zero before the final line):
   7. the main path's whole outer iteration,
      ``Trainer(preset("connect4")).iterate(vanilla_eval=False)``: launch
      counts set to 0 before and read after, and measured per phase
-     (collect, train, gate); seconds of collect, train and gate, checks on
+     (collect, train, gate; the gate's simulation kernels as the move
+     search's graphs leave them, ``move_search_launches``); seconds of
+     collect, train and gate, checks on
      the gate's searches, the score, the loss and the promote/revert
      bookkeeping; then one gate move (both agents) profiled;
   8. the per-simulation engine (kernels 3 and 4, csrc/sim.cu, a group of
@@ -492,6 +494,27 @@ def counted_phases(obj, phases, kernels, split):
     for phase in phases:
         setattr(obj, phase, wrap(phase, getattr(obj, phase)))
     return counts
+
+
+def graph_counts():
+    """The move search's graph counters, ``(captures, replays)``."""
+    from alphazero_tpu_torch.search import fused
+    return fused.MOVE_GRAPHS.captures, fused.MOVE_GRAPHS.replays
+
+
+def move_search_launches(searches, S, before):
+    """Launches of the move search's kernels that ``searches`` searches on
+    their own forward made since ``graph_counts()`` read ``before``.  Each
+    simulation kernel (descent, forward, apply): S-1 a search run eagerly,
+    none a search that replayed a graph, and 2(S-1) a capture (its warm-up
+    and the capture itself; the capturing search's own result is a
+    replay).  The root init: one a search and one more a capture (the
+    tree's reset after the warm-up); the root counts: one a search."""
+    captures, replays = (n - b for n, b in zip(graph_counts(), before))
+    chain = (searches - replays + 2 * captures) * (S - 1)
+    return {"az_dense_forward": chain, "az_descend_leaf": chain,
+            "az_apply": chain, "az_move_root_init": searches + captures,
+            "az_root_counts": searches}
 
 
 def forward_by_batch(env, model, params, packed, batches, sweep, gen, dev):
@@ -2101,6 +2124,7 @@ def dense_games_phase(gen, dev):
         traced_run_mcts
     for k in fused.KERNELS:
         k.launches = 0
+    graphs0 = graph_counts()
     try:
         it = tr.iterate(vanilla_eval=False)
     finally:
@@ -2119,11 +2143,7 @@ def dense_games_phase(gen, dev):
                     "az_root_counts": 0},
         "train_epoch": {k: 0 for k in total},
         "gate": {k: 0 for k in total}}
-    expect["gate"].update({
-        "az_dense_forward": searches * (S - 1),
-        "az_descend_leaf": searches * (S - 1),
-        "az_apply": searches * (S - 1),
-        "az_move_root_init": searches, "az_root_counts": searches})
+    expect["gate"].update(move_search_launches(searches, S, graphs0))
     log(f"[gomoku9-dense iterate] Trainer(preset('gomoku9-dense'))"
         f".iterate(vanilla_eval=False): launches {total}; measured per "
         f"phase {split}")
@@ -2603,8 +2623,11 @@ def mesh_dp_rank(out):
     tr.train_epoch = train_and_keep
     for k in fused.KERNELS:
         k.launches = 0
+    graphs0 = graph_counts()
     it = tr.iterate(vanilla_eval=False)
     launches = counts()
+    gate_expect = move_search_launches(2 * tr.env.max_moves,
+                                       cfg.mcts.num_simulations, graphs0)
     log(f"[mesh a] rank {mesh.rank}: iterate launches {launches}; per phase "
         f"{split}")
 
@@ -2648,8 +2671,8 @@ def mesh_dp_rank(out):
             "collect_seconds", "train_seconds", "gate_seconds", "games",
             "env_steps", "steps", "loss", "accepted", "gate_rate",
             "buffer_size", "chunk_seconds")},
-        launches=launches, split=split, chunks=len(it["chunk_seconds"]),
-        M=M, same_first_chunk=same,
+        launches=launches, split=split, gate_expect=gate_expect,
+        chunks=len(it["chunk_seconds"]), M=M, same_first_chunk=same,
         local={"games": int(sp1.games_done - sp0.games_done),
                "env_steps": int(sp1.env_steps - sp0.env_steps),
                "results": (sp1.results - sp0.results).tolist()},
@@ -2853,11 +2876,8 @@ def mesh_phase(dev, forward_held, chunk_held):
     ra = run_ranks("dp", 2, root / "a")
     r0, r1 = ra
     M, Bl = r0["M"], r0["games_local"]
-    searches = 2 * env.max_moves
-    gate = {"az_dense_forward": searches * (S - 1),
-            "az_descend_leaf": searches * (S - 1),
-            "az_apply": searches * (S - 1),
-            "az_move_root_init": searches, "az_root_counts": searches}
+    # what rank 0's gate searches launch, graphs and all
+    gate = r0["gate_expect"]
 
     def collect(chunks):
         return {"az_dense_forward": chunks * M * S, "az_root_obs": chunks,
@@ -3416,6 +3436,7 @@ def main():
     arena.run_mcts = traced_run_mcts
     for k in fused.KERNELS:
         k.launches = 0
+    graphs0 = graph_counts()
     try:
         it = tr7.iterate(vanilla_eval=False)
     finally:
@@ -3423,11 +3444,7 @@ def main():
     launches7 = launch_counts()
     chunks7 = len(it["chunk_seconds"])
     searches = 2 * env.max_moves             # both agents, every gate move
-    gate_launches = {
-        "az_dense_forward": searches * (S - 1),
-        "az_descend_leaf": searches * (S - 1),
-        "az_apply": searches * (S - 1),
-        "az_move_root_init": searches, "az_root_counts": searches}
+    gate_launches = move_search_launches(searches, S, graphs0)
     expect7 = {}
     for name in launches7:
         expect7[name] = (expect[name] // chunks * chunks7

@@ -1455,3 +1455,142 @@ def test_a_model_that_runs_collectives_is_never_captured_on_the_card(dev):
         want_p, _ = ev.forward(obs)
     assert (ev.captures, ev.replays) == (0, 0)
     assert torch.equal(p, want_p)
+
+
+# ---------------------------------------------------------------------------
+# the move search's simulations as one CUDA graph (fused.MoveGraphs)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """A fresh graph cache for the test's move searches."""
+    g = fused.MoveGraphs()
+    monkeypatch.setattr(fused, "MOVE_GRAPHS", g)
+    return g
+
+
+def _gate_cfg(**kw):
+    import dataclasses
+    from alphazero_tpu_torch.config import preset
+    return dataclasses.replace(preset("connect4").mcts, **kw)
+
+
+def _move_both(env, model, params, eval_fn, roots, cfg, dev, **kw):
+    """The search as ``agent_move`` and the gate run it (its own forward,
+    which the cache may replay as a graph) and the same search with the
+    dense kernel passed as the ``evaluator`` (always eager)."""
+    got = fused.run_mcts_fused(env, model, params, eval_fn, *roots, cfg,
+                               device=dev, **kw)
+    packed = fused.pack_dense_params(model, params, dev)
+    want = fused.run_mcts_fused(
+        env, model, params, eval_fn, *roots, cfg, device=dev,
+        evaluator=lambda o: fused.dense_forward(o, packed), **kw)
+    return got, want
+
+
+RESULT = ("visit_counts", "policy", "root_q")
+
+
+def _same_search(got, want):
+    for name in RESULT:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_move_graph_equals_the_eager_search(dev, graphs, B):
+    """connect4's tower at S=200: every search of a run of consecutive
+    ones at one shape, the capture's and the replays', gives the eager
+    search's visit counts, policy and root Q bit for bit, on live, won and
+    drawn roots (at B=1 one root a search; at B=128 with root noise)."""
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    env, model, params = _graph_model("connect4", dev)
+    eval_fn = make_eval_fn(model, params)
+    calls = CAPTURE_AT + 5
+    if B == 1:
+        cfg = _gate_cfg(use_dirichlet=False)
+        pool = _move_positions(env, 128, 30, dev)
+        dones = pool[3]
+        rows = [0, int(torch.nonzero(dones[:-1])[0]), 127, 1, 2,
+                int(torch.nonzero(dones[:-1])[-1]), 3, 4]
+        assert len(rows) == calls
+    else:
+        cfg = _gate_cfg()
+    for k in range(calls):
+        kw = {}
+        if B == 1:
+            roots = tuple(x[rows[k]:rows[k] + 1] for x in pool)
+        else:
+            roots = _move_positions(env, B, 40 + k, dev)
+            g = torch.Generator(device=dev).manual_seed(50 + k)
+            kw["noise"] = fused.dirichlet_noise(1, env.action_dim, B, 0.3, g,
+                                                dev)[0].T
+        got, want = _move_both(env, model, params, eval_fn, roots, cfg, dev,
+                               **kw)
+        _same_search(got, want)
+        sums = got.visit_counts.sum(-1)
+        assert (sums[~roots[3]] == cfg.num_simulations - 1).all()
+        assert (sums[roots[3]] == 0).all()
+        assert graphs.captures == int(k + 1 >= CAPTURE_AT)
+        assert graphs.replays == max(0, k + 2 - CAPTURE_AT)
+
+
+def test_move_graph_takes_each_searchs_params(dev, graphs):
+    """The gate's case at B=128: two players' params alternating at one
+    shape, then an in-place update of one weight (as a learner's step
+    makes it); each search equals the eager one with its own weights, and
+    a result kept from an earlier search is left as it was."""
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    env, model, p0 = _graph_model("connect4", dev, seed=0)
+    _, _, p1 = _graph_model("connect4", dev, seed=1)
+    players = [(p0, make_eval_fn(model, p0)), (p1, make_eval_fn(model, p1))]
+    cfg = _gate_cfg(use_dirichlet=False)
+    calls = 2 * CAPTURE_AT + 2
+    kept = None
+    for k in range(calls):
+        params, eval_fn = players[k % 2]
+        roots = _move_positions(env, 128, 60 + k, dev)
+        got, want = _move_both(env, model, params, eval_fn, roots, cfg, dev)
+        _same_search(got, want)
+        if k == CAPTURE_AT:
+            kept = (got, {n: getattr(got, n).clone() for n in RESULT})
+    assert (graphs.captures, graphs.replays) == (1, calls - CAPTURE_AT + 1)
+    roots = _move_positions(env, 128, 90, dev)
+    params, eval_fn = players[0]
+    before, _ = _move_both(env, model, params, eval_fn, roots, cfg, dev)
+    with torch.no_grad():
+        params["block_0.fc1.weight"].mul_(-1.5)
+    got, want = _move_both(env, model, params, eval_fn, roots, cfg, dev)
+    _same_search(got, want)
+    assert not torch.equal(got.visit_counts, before.visit_counts)
+    torch.cuda.synchronize()
+    for n, c in kept[1].items():
+        assert torch.equal(getattr(kept[0], n), c), n
+
+
+def test_move_graph_capture_and_replay_under_the_profiler(dev, graphs):
+    """As in a profiled gate: the key's capture and its replays while a
+    torch.profiler records the card, a ``search.graph`` span a replay, and
+    the results the eager search's."""
+    from torch.profiler import ProfilerActivity, profile
+    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.utils import profiling
+    env, model, params = _graph_model("connect4", dev)
+    eval_fn = make_eval_fn(model, params)
+    cfg = _gate_cfg(use_dirichlet=False)
+    roots = [_move_positions(env, 128, 70 + k, dev)
+             for k in range(CAPTURE_AT + 2)]
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = [fused.run_mcts_fused(env, model, params, eval_fn, *r, cfg,
+                                    device=dev) for r in roots]
+        torch.cuda.synchronize()
+    t = profiling.totals()
+    profiling.reset()
+    assert (graphs.captures, graphs.replays) == (1, 3)
+    assert t["search.graph"][0] == 3 and t["search.sims"][0] == len(roots)
+    from torch.autograd import DeviceType
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+    for r, g in zip(roots, got):
+        _, want = _move_both(env, model, params, eval_fn, r, cfg, dev)
+        _same_search(g, want)

@@ -1,0 +1,243 @@
+"""The move search's CUDA graph cache (``search.fused.MoveGraphs``) on the
+CPU.
+
+* A CPU move search never captures and gives exactly what
+  ``move_search_reference`` gives.
+* The cache's rule (capture at a key's ``CAPTURE_AT``-th search, a count
+  per key, at most ``MAX_GRAPHS`` keys, never with an ``evaluator``), its
+  counters and its ``search.graph`` spans, and that its fixed addresses
+  leave earlier results and the weights of each call alone, through a stub
+  whose "graph" replays the eager simulations on the entry, so no GPU is
+  needed.
+
+The graphs themselves run on the card: ``tests/test_torch_cuda.py``.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from alphazero_tpu_torch.config import MCTSConfig, ModelConfig
+from alphazero_tpu_torch.envs import make_env
+from alphazero_tpu_torch.models import (CAPTURE_AT, MAX_GRAPHS, build_model,
+                                        init_params, make_eval_fn)
+from alphazero_tpu_torch.search import fused
+from alphazero_tpu_torch.search.stub import drawn_board
+from alphazero_tpu_torch.utils import profiling
+
+CFG = MCTSConfig(num_simulations=10, use_dirichlet=False)
+
+
+class _Stub(fused.MoveGraphs):
+    """Engages on the CPU; its "graph" is the eager chain, replayed, and
+    its capture runs the chain once as the card's warm-up does."""
+
+    def _engages(self, board):
+        return True
+
+    def _capture(self, chain, device):
+        chain()              # the warm-up runs on the entry, as on the card
+        return chain
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    s = _Stub()
+    monkeypatch.setattr(fused, "MOVE_GRAPHS", s)
+    return s
+
+
+def _model(width=64, seed=0, game="connect4"):
+    env = make_env(game)
+    model = build_model(ModelConfig(family="dense", width=width, blocks=1),
+                        env)
+    params = init_params(model, torch.Generator().manual_seed(seed))
+    return env, model, params
+
+
+def _roots(env, B, seed):
+    """B roots of random legal play, each stopped at its own length (some
+    finished), the last one a drawn full board."""
+    g = torch.Generator().manual_seed(seed)
+    st = env.init(B)
+    target = torch.randint(0, 16, (B,), generator=g)
+    for t in range(16):
+        mask = env.valid_mask(st) & (t < target)[:, None] & ~st.done[:, None]
+        act = torch.where(mask, torch.rand(mask.shape, generator=g), -1.0
+                          ).argmax(-1).to(torch.int32)
+        nxt = env.step(st, act)
+        live = mask.any(-1)
+        st = type(st)(*(torch.where(
+            live.reshape((B,) + (1,) * (getattr(st, f).dim() - 1)),
+            getattr(nxt, f), getattr(st, f)) for f in vars(st)))
+    st.board[-1] = drawn_board(env)
+    st.current_player[-1], st.move_count[-1] = 0, env.max_moves
+    st.done[-1] = True
+    return st.board, st.current_player, st.move_count, st.done
+
+
+def _search(env, model, params, roots, cfg=CFG, **kw):
+    return fused.run_mcts_fused(env, model, params,
+                                make_eval_fn(model, params), *roots, cfg,
+                                device="cpu", **kw)
+
+
+def _want(env, model, params, roots, cfg=CFG):
+    return fused.move_search_reference(env, model, params,
+                                       make_eval_fn(model, params), *roots,
+                                       cfg)
+
+
+def _equal(got, want):
+    for name in ("visit_counts", "policy", "root_q"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("formula", ["reference", "alphazero"])
+def test_cpu_move_search_never_captures_and_is_the_reference(formula):
+    env, model, params = _model()
+    cfg = dataclasses.replace(CFG, formula=formula, c_puct=1.7)
+    before = (fused.MOVE_GRAPHS.captures, fused.MOVE_GRAPHS.replays)
+    for k in range(CAPTURE_AT + 2):
+        roots = _roots(env, 4, k)
+        _equal(_search(env, model, params, roots, cfg),
+               _want(env, model, params, roots, cfg))
+    assert (fused.MOVE_GRAPHS.captures, fused.MOVE_GRAPHS.replays) == before
+    assert not fused.MOVE_GRAPHS._entries
+
+
+def test_stub_captures_a_key_at_its_kth_search(stub):
+    env, model, params = _model()
+    for k in range(1, CAPTURE_AT + 3):
+        roots = _roots(env, 3, k)
+        _equal(_search(env, model, params, roots),
+               _want(env, model, params, roots))
+        assert stub.captures == int(k >= CAPTURE_AT)
+        assert stub.replays == max(0, k - CAPTURE_AT + 1)
+
+
+@pytest.mark.parametrize("change", ["B", "S", "c_puct", "formula", "width",
+                                    "game"])
+def test_stub_counts_each_key_on_its_own(stub, change):
+    """Two keys that differ in one of what the launches bake in count
+    apart: neither captures before its own CAPTURE_AT-th search."""
+    env, model, params = _model()
+    B, cfg = 2, CFG
+    other = dict(env=env, model=model, params=params, B=B, cfg=cfg)
+    if change == "B":
+        other["B"] = 3
+    elif change == "S":
+        other["cfg"] = dataclasses.replace(cfg, num_simulations=12)
+    elif change == "c_puct":
+        other["cfg"] = dataclasses.replace(cfg, c_puct=2.0)
+    elif change == "formula":
+        other["cfg"] = dataclasses.replace(cfg, formula="alphazero")
+    elif change == "width":
+        _, other["model"], other["params"] = _model(width=128)
+    else:
+        other["env"], other["model"], other["params"] = _model(
+            game="tictactoe")
+    for k in range(CAPTURE_AT - 1):
+        _search(env, model, params, _roots(env, B, k), cfg)
+        o = other
+        _search(o["env"], o["model"], o["params"],
+                _roots(o["env"], o["B"], k), o["cfg"])
+    assert stub.captures == 0
+    roots = _roots(env, B, 9)
+    _equal(_search(env, model, params, roots, cfg),
+           _want(env, model, params, roots, cfg))
+    assert (stub.captures, stub.replays) == (1, 1)
+    o = other
+    roots = _roots(o["env"], o["B"], 9)
+    _equal(_search(o["env"], o["model"], o["params"], roots, o["cfg"]),
+           _want(o["env"], o["model"], o["params"], roots, o["cfg"]))
+    assert (stub.captures, stub.replays) == (2, 2)
+    assert len(stub._entries) == 2
+
+
+def test_stub_holds_at_most_max_graphs_keys(stub):
+    env, model, params = _model()
+    for B in range(1, MAX_GRAPHS + 1):
+        for k in range(CAPTURE_AT):
+            _search(env, model, params, _roots(env, B, k))
+    assert (stub.captures, stub.replays) == (MAX_GRAPHS, MAX_GRAPHS)
+    extra = MAX_GRAPHS + 1
+    for k in range(CAPTURE_AT + 1):                # beyond the cap: eager
+        roots = _roots(env, extra, k)
+        _equal(_search(env, model, params, roots),
+               _want(env, model, params, roots))
+    assert (stub.captures, stub.replays) == (MAX_GRAPHS, MAX_GRAPHS)
+    assert len(stub._entries) == MAX_GRAPHS
+    _search(env, model, params, _roots(env, 1, 7))  # a held key replays
+    assert (stub.captures, stub.replays) == (MAX_GRAPHS, MAX_GRAPHS + 1)
+
+
+def test_stub_never_engages_with_an_evaluator(stub):
+    env, model, params = _model()
+    packed = fused.pack_dense_params(model, params)
+    for k in range(CAPTURE_AT + 2):
+        roots = _roots(env, 3, k)
+        got = _search(env, model, params, roots,
+                      evaluator=lambda o: fused.dense_forward(o, packed))
+        _equal(got, _want(env, model, params, roots))
+    assert (stub.captures, stub.replays) == (0, 0)
+    assert not stub._calls and not stub._entries
+
+
+def test_stub_spans_one_graph_span_a_replay(stub):
+    """Under a profiler every replay is a ``search.graph`` span inside the
+    search's ``search.sims`` span."""
+    env, model, params = _model()
+    calls = CAPTURE_AT + 2
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for k in range(calls):
+            _search(env, model, params, _roots(env, 2, k))
+    t = profiling.totals()
+    assert t["search.sims"][0] == calls
+    assert t["search.graph"][0] == stub.replays == calls - CAPTURE_AT + 1
+    sims = {i for i, s in enumerate(profiling.spans())
+            if s.name == "search.sims"}
+    assert all(s.parent in sims for s in profiling.spans()
+               if s.name == "search.graph")
+    profiling.reset()
+
+
+def test_stub_results_stay_after_the_next_search(stub):
+    """Each search's result is fresh: the entry's tree and inputs, reused
+    by the next search at the key, are not what the caller holds."""
+    env, model, params = _model()
+    kept = []
+    for k in range(CAPTURE_AT + 2):
+        res = _search(env, model, params, _roots(env, 3, 20 + k))
+        kept.append((res, [getattr(res, n).clone() for n in
+                           ("visit_counts", "policy", "root_q")]))
+    assert stub.replays == 3
+    for res, copy in kept:
+        for name, c in zip(("visit_counts", "policy", "root_q"), copy):
+            assert torch.equal(getattr(res, name), c)
+    for (a, _), (b, _) in zip(kept, kept[1:]):
+        assert a.visit_counts.data_ptr() != b.visit_counts.data_ptr()
+
+
+def test_stub_takes_each_calls_params(stub):
+    """Two params dicts alternating at one key (the gate's two players),
+    then an in-place update of one weight: every search gives its own
+    weights' result."""
+    env, model, p0 = _model(seed=0)
+    _, _, p1 = _model(seed=1)
+    roots = _roots(env, 3, 5)
+    for k in range(2 * CAPTURE_AT):
+        params = (p0, p1)[k % 2]
+        _equal(_search(env, model, params, roots),
+               _want(env, model, params, roots))
+    assert stub.captures == 1 and stub.replays == 2 * CAPTURE_AT - 2
+    a, b = (_search(env, model, p, roots) for p in (p0, p1))
+    assert not torch.equal(a.policy, b.policy)
+    with torch.no_grad():
+        p0["block_0.fc1.weight"].mul_(-1.5)
+    got = _search(env, model, p0, roots)
+    _equal(got, _want(env, model, p0, roots))
+    assert not torch.equal(got.policy, a.policy)
