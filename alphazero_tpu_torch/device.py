@@ -1,6 +1,9 @@
-"""Device resolution shared by the package's entry points."""
+"""Device resolution shared by the package's entry points, and the
+float32 precision the plain forwards keep on the card."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,3 +21,28 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_float32_convs():
+    """cuDNN runs float32 convs in TF32 unless told not to; the port keeps
+    them IEEE float32 (the bfloat16 default dtype is unaffected)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def ieee_float32_matmuls():
+    """The heads and the plain tower multiply in IEEE float32: TF32 off for
+    the enclosed products (PyTorch's default, set here so that no caller's
+    setting changes the heads)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

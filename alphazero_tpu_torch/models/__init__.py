@@ -13,6 +13,7 @@ from alphazero_tpu_torch.models import dense, resnet, vit
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.models.resnet import ResNet
 from alphazero_tpu_torch.models.vit import ViT
+from alphazero_tpu_torch.ops.graphs import GraphCache
 from alphazero_tpu_torch.ops.resnet_tower import (make_fused_apply,
                                                   supports_fused_resnet)
 from alphazero_tpu_torch.utils.profiling import span
@@ -76,89 +77,62 @@ def params_from_flax(params_np) -> dict:
     return dense.params_from_flax(params_np)
 
 
-# A batch shape's forward is captured at its CAPTURE_AT-th call (the calls
-# before it run eagerly and warm its kernels up); an evaluator holds at most
-# MAX_GRAPHS captured shapes and runs every other shape eagerly.
-CAPTURE_AT = 3
-MAX_GRAPHS = 4
-
-
 class _Graph:
-    """One captured forward: a static input, the graph, its static outputs."""
+    """One captured forward: a static input, its static outputs, the
+    replay."""
 
-    def __init__(self, forward, obs):
+    def __init__(self, cache: GraphCache, forward, obs):
         self.obs = obs.clone(memory_format=torch.contiguous_format)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(obs.device):
-            # warm up and capture on a side stream, as torch.cuda.graphs
-            # prescribes
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                forward(self.obs)
-            # thread_local: a profiler's own threads may call CUDA meanwhile
-            with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                self.probs, self.value = forward(self.obs)
-            torch.cuda.current_stream().wait_stream(side)
+
+        def run():
+            self.probs, self.value = forward(self.obs)
+
+        self.replay = cache.capture(run, obs.device)
 
     def __call__(self, obs):
         self.obs.copy_(obs)
-        self.graph.replay()
+        self.replay()
         return self.probs.clone(), self.value.clone()
 
 
-class Evaluator:
+class Evaluator(GraphCache):
     """The eager evaluator ``obs (B, F, R, C) → (probs, value)`` that
     replays its forward as a CUDA graph per batch shape.
 
     For CUDA inputs of a model whose forward runs no collective (no
     ``runs_collectives`` attribute set, as ``parallel.TPViT`` sets it), a
-    shape's ``CAPTURE_AT``-th call captures the forward (a warm-up and the
-    capture on a side stream), and later calls at that shape copy ``obs``
+    shape's ``CAPTURE_AT``-th call captures the forward
+    (``ops.graphs.capture``), and later calls at that shape copy ``obs``
     into the graph's input and replay it (a ``model.graph`` span inside
     ``model.forward``).  Every other call, and every call on the CPU, runs
     the forward eagerly.  The replayed kernels are the eager ones.
     Outputs are always fresh tensors: a caller may keep them past the next
     call.  The graph reads the parameter tensors the evaluator was built
     with at their addresses: an in-place update of one is seen, a tensor
-    put in its place in ``params`` is not.  ``captures`` and ``replays``
-    count the graphs made and the calls that replayed one."""
+    put in its place in ``params`` is not.  Each evaluator is its own
+    :class:`~alphazero_tpu_torch.ops.graphs.GraphCache`, keyed by the
+    input's shape, dtype and device; ``captures`` and ``replays`` count
+    the graphs made and the calls that replayed one."""
 
     def __init__(self, model, params: dict):
+        super().__init__()
         self.model = model
         self.params = params
         self.graphable = not getattr(model, "runs_collectives", False)
-        self.captures = 0
-        self.replays = 0
-        self._calls = {}
-        self._graphs = {}
 
     def forward(self, obs):
         logits, value = functional_call(self.model, self.params, (obs,))
         return torch.softmax(logits, dim=-1), value
 
-    def _engages(self, obs) -> bool:
-        return self.graphable and obs.is_cuda
-
-    def _capture(self, obs):
-        return _Graph(self.forward, obs)
-
     @torch.no_grad()
     def __call__(self, obs):
         with span("model.forward"):
-            if not self._engages(obs):
-                return self.forward(obs)
-            key = (tuple(obs.shape), obs.dtype, obs.device)
-            graph = self._graphs.get(key)
+            graph = None
+            if self.graphable and self._engages(obs):
+                graph = self.lookup((tuple(obs.shape), obs.dtype, obs.device),
+                                    lambda: _Graph(self, self.forward, obs))
             if graph is None:
-                if len(self._graphs) >= MAX_GRAPHS:
-                    return self.forward(obs)
-                n = self._calls[key] = self._calls.get(key, 0) + 1
-                if n < CAPTURE_AT:
-                    return self.forward(obs)
-                graph = self._graphs[key] = self._capture(obs)
-                self.captures += 1
+                return self.forward(obs)
             self.replays += 1
             with span("model.graph"):
                 return graph(obs)

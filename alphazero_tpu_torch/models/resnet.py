@@ -17,26 +17,14 @@ head reads the 1×1 conv's output flattened in NHWC order, as flax's does.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphazero_tpu_torch.device import ieee_float32_convs
+
 LN_EPS = 1e-6  # flax's LayerNorm default (torch's own default is 1e-5)
-
-
-@contextlib.contextmanager
-def _ieee_float32_convs():
-    """cuDNN runs float32 convs in TF32 unless told not to; the port keeps
-    them IEEE float32 (the bfloat16 default dtype is unaffected)."""
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = old
 
 
 def _conv(x, conv: nn.Conv2d, dtype):
@@ -92,7 +80,7 @@ class ResNet(nn.Module):
         self.value_head = nn.Linear(channels, 1)
 
     def forward(self, x: torch.Tensor):
-        with _ieee_float32_convs():
+        with ieee_float32_convs():
             return self._forward(x)
 
     def _forward(self, x):

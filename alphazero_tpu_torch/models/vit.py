@@ -44,9 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphazero_tpu_torch.device import (ieee_float32_convs,
+                                        ieee_float32_matmuls)
 from alphazero_tpu_torch.models.dense import LN_EPS
-from alphazero_tpu_torch.models.resnet import _ieee_float32_convs
-from alphazero_tpu_torch.ops.resnet_tower import _ieee_float32_matmuls
 
 
 def _ln(x, ln: nn.LayerNorm, dtype):
@@ -158,7 +158,7 @@ class ViT(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout_generator=None):
         # float32 configs stay IEEE float32: no TF32 in the conv or matmuls
-        with _ieee_float32_convs(), _ieee_float32_matmuls():
+        with ieee_float32_convs(), ieee_float32_matmuls():
             return self._forward(x, dropout_generator)
 
     def _forward(self, x, generator):

@@ -25,7 +25,6 @@ C)`` float32, games and cells in rows.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -33,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from alphazero_tpu_torch.device import ieee_float32_matmuls
 from alphazero_tpu_torch.ops.build import (CudaKernel, check, load, plain,
                                           stream)
 
@@ -99,19 +99,6 @@ def pack(state_dict: dict, blocks: int) -> dict:
     )
 
 
-@contextlib.contextmanager
-def _ieee_float32_matmuls():
-    """The heads and the plain tower multiply in IEEE float32: TF32 off for
-    the enclosed products (PyTorch's default, set here so that no caller's
-    setting changes the heads)."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
 def _bf16(t):
     """Round to bf16 and back: the value the kernel reads."""
     return t.to(torch.bfloat16).float()
@@ -142,7 +129,7 @@ def tower_reference(x: torch.Tensor, packed: dict) -> torch.Tensor:
 
     xin = x.float().reshape(B, F, RC).transpose(1, 2)
     xin = torch.nn.functional.pad(xin, (0, CIN_STEM - F))
-    with _ieee_float32_matmuls():
+    with ieee_float32_matmuls():
         h = torch.relu(ln(conv(_bf16(xin), packed["wstem"]), 0))
         for b in range(packed["wblk"].shape[0]):
             y = torch.relu(ln(conv(_bf16(h), packed["wblk"][b, 0]), 1 + 2 * b))
@@ -157,7 +144,7 @@ def heads(feat: torch.Tensor, packed: dict):
     flattened cell-major, channel-minor (NHWC), as flax's."""
     B, RC, _ = feat.shape
     pk = packed
-    with _ieee_float32_matmuls():
+    with ieee_float32_matmuls():
         p = torch.relu(feat @ pk["pconv_k"] + pk["pconv_b"])       # (B, RC, 2)
         logits = p.reshape(B, RC * 2) @ pk["ph_k"] + pk["ph_b"]
         v = torch.relu(feat @ pk["vconv_k"] + pk["vconv_b"]).reshape(B, RC)

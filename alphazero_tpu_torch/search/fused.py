@@ -80,10 +80,10 @@ from alphazero_tpu_torch.device import resolve_device
 from alphazero_tpu_torch.envs.core import (RULES_GRAVITY,
                                            RULES_NEIGHBOURHOOD,
                                            _make_line_matrix, line_cells)
-from alphazero_tpu_torch.models import CAPTURE_AT, MAX_GRAPHS
 from alphazero_tpu_torch.models.dense import DenseTower
 from alphazero_tpu_torch.ops.build import CudaKernel, check, plain, stream
 from alphazero_tpu_torch.ops.build import load as load_lib
+from alphazero_tpu_torch.ops.graphs import GraphCache
 from alphazero_tpu_torch.search.mcts import (NEG, SearchResult,
                                              dirichlet_noise, first_argmax,
                                              root_prior, search_inputs)
@@ -970,6 +970,16 @@ def supports_chunk(env, model, cfg: MCTSConfig) -> bool:
     return True
 
 
+def _simulate(ops, env, cfg: MCTSConfig, tree: Tree, board, player, mc,
+              evaluator):
+    """Simulations 1..S-1 of one move's search, the chunk's and the move
+    search's: a fixed chain of launches that never reads the device."""
+    for slot in range(1, cfg.num_simulations):
+        ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
+        probs, value = evaluator(tree.obs)
+        ops.apply(tree, slot, probs, value)
+
+
 def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
            noise, unif, evaluator):
     B = boards.shape[0]
@@ -995,10 +1005,7 @@ def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
                 ops.root_init(env, cfg, tree, probs0, value0,
                               noise[m] if cfg.use_dirichlet else None, board)
             with span("search.sims", S - 1):
-                for slot in range(1, S):
-                    ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
-                    probs, value = evaluator(tree.obs)
-                    ops.apply(tree, slot, probs, value)
+                _simulate(ops, env, cfg, tree, board, player, mc, evaluator)
             with span("search.finish"):
                 obs = ops.move_tail(env, cfg, tree, unif[m], board, player,
                                     mc, {k: v[m] for k, v in rec.items()},
@@ -1071,16 +1078,6 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
 # the move search (the arena's and the gate's search)
 # ---------------------------------------------------------------------------
 
-def _simulate(ops, env, cfg: MCTSConfig, tree: Tree, board, player, mc,
-              evaluator):
-    """Simulations 1..S-1 of the move search: a fixed chain of launches
-    that never reads the device."""
-    for slot in range(1, cfg.num_simulations):
-        ops.descend_leaf(env, cfg, tree, board, player, mc, slot)
-        probs, value = evaluator(tree.obs)
-        ops.apply(tree, slot, probs, value)
-
-
 class _MoveEntry:
     """The fixed addresses of one key's captured simulations: its tree,
     the search's board, player and move counts, the packed weights, and
@@ -1108,7 +1105,7 @@ class _MoveEntry:
         return dense_forward(obs, self.packed)
 
 
-class MoveGraphs:
+class MoveGraphs(GraphCache):
     """The move search's simulations 1..S-1 replayed as one CUDA graph per
     search shape.
 
@@ -1116,8 +1113,8 @@ class MoveGraphs:
     (``run_mcts_fused`` without an ``evaluator``) looks up its key: the
     device, B, S, the game's geometry and rules, the formula, ``c_puct``
     and the tower's widths, all that the captured launches bake in.  A
-    key's ``CAPTURE_AT``-th search captures the chain (a warm-up and the
-    capture on a side stream) on a tree of the key's own, and that search
+    key's ``CAPTURE_AT``-th search captures the chain
+    (``ops.graphs.capture``) on a tree of the key's own, and that search
     and every later one at the key copy their board, player, move counts
     and packed weights to the entry's fixed addresses, initialise the
     root on its tree (which resets it: every other row is rewritten
@@ -1129,31 +1126,6 @@ class MoveGraphs:
     graphs made and the searches that replayed one.  The process has one
     cache, :data:`MOVE_GRAPHS`, so the searches of every caller at one
     shape (the gate's two players, a game's agent moves) share an entry."""
-
-    def __init__(self):
-        self.captures = 0
-        self.replays = 0
-        self._calls = {}
-        self._entries = {}
-
-    def _engages(self, board) -> bool:
-        return board.is_cuda
-
-    def _capture(self, chain, device):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
-            # warm up and capture on a side stream, as torch.cuda.graphs
-            # prescribes; the wrappers launch on the current stream
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                chain()
-            # thread_local: a profiler's own threads may call CUDA meanwhile
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                chain()
-            torch.cuda.current_stream().wait_stream(side)
-        return graph.replay
 
     @staticmethod
     def key(env, cfg: MCTSConfig, board, packed: dict) -> tuple:
@@ -1169,24 +1141,12 @@ class MoveGraphs:
         the search runs eagerly."""
         if not self._engages(board):
             return None
-        key = self.key(env, cfg, board, packed)
-        e = self._entries.get(key)
-        if e is None:
-            if len(self._entries) >= MAX_GRAPHS:
-                return None
-            n = self._calls[key] = self._calls.get(key, 0) + 1
-            if n < CAPTURE_AT:
-                return None
-            e = self._entries[key] = _MoveEntry(env, cfg.num_simulations,
-                                                board, player, mc, packed)
-        e.load(board, player, mc, packed)
+        e = self.lookup(self.key(env, cfg, board, packed),
+                        lambda: _MoveEntry(env, cfg.num_simulations, board,
+                                           player, mc, packed))
+        if e is not None:
+            e.load(board, player, mc, packed)
         return e
-
-    def capture(self, chain, device):
-        """Capture ``chain`` (the key's simulations on its entry) on
-        ``device``; returns the replay."""
-        self.captures += 1
-        return self._capture(chain, device)
 
 
 MOVE_GRAPHS = MoveGraphs()

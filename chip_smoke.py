@@ -188,9 +188,6 @@ import torch
 
 TOL_FWD_MAX = 1e-2      # max |kernel - plain| on probs and value
 TOL_FWD_FRAC = 0.99     # ... and this share of outputs within 1e-3
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
 REPLACES = "alphazero_tpu/search/pallas_fused.py:805"        # _chunk_kernel
 REPLACES_MOVE = "alphazero_tpu/search/pallas_fused.py:661"   # _move_kernel
 REPLACES_SIM = {"az_sim_step": "alphazero_tpu/search/pallas_mcts.py:555",
@@ -230,10 +227,10 @@ def alternate(kernel_fn, plain_fn, rounds=5, k_reps=20, p_reps=3):
 
 
 def bound(nbytes, bf16_ops=0.0, f32_ops=0.0):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """``azbench.counts.bound_s`` in ms."""
+    from azbench.counts import bound_s
+    t, by = bound_s(nbytes, bf16_ops, f32_ops)
+    return t * 1e3, by
 
 
 def nbytes(*ts):

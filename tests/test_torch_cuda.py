@@ -1360,7 +1360,8 @@ def test_graphed_evaluator_equals_the_eager_forward(dev, name, B):
     graph, whose outputs equal the eager forward's bit for bit: the ViT of
     ``gomoku7-reference`` at self-play's B=256 and at B=1, the connect4
     dense tower at the root's B=1."""
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, params = _graph_model(name, dev)
     ev = make_eval_fn(model, params)
     calls = CAPTURE_AT + 3
@@ -1377,7 +1378,8 @@ def test_graphed_evaluator_equals_the_eager_forward(dev, name, B):
 
 
 def test_graphed_outputs_are_not_changed_by_the_next_call(dev):
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, params = _graph_model("gomoku7-reference", dev)
     ev = make_eval_fn(model, params)
     for k in range(CAPTURE_AT):
@@ -1393,7 +1395,8 @@ def test_graphed_outputs_are_not_changed_by_the_next_call(dev):
 
 
 def test_graph_sees_an_in_place_parameter_update(dev):
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, params = _graph_model("gomoku7-reference", dev)
     ev = make_eval_fn(model, params)
     obs = _graph_obs(env, 256, 7, dev)
@@ -1416,7 +1419,8 @@ def test_graph_capture_and_replay_under_the_profiler(dev):
     and replays while a torch.profiler records the card, every replay is
     a ``model.graph`` span, and the outputs are the eager forward's."""
     from torch.profiler import ProfilerActivity, profile
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     from alphazero_tpu_torch.utils import profiling
     env, model, params = _graph_model("gomoku7-reference", dev)
     ev = make_eval_fn(model, params)
@@ -1442,7 +1446,8 @@ def test_graph_capture_and_replay_under_the_profiler(dev):
 def test_a_model_that_runs_collectives_is_never_captured_on_the_card(dev):
     """``TPViT`` all-reduces inside its forward: a model flagged as it is
     flagged keeps the eager forward on the card."""
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     from alphazero_tpu_torch.parallel import TPViT
     assert TPViT.runs_collectives
     env, model, params = _graph_model("gomoku7-reference", dev)
@@ -1502,7 +1507,8 @@ def test_move_graph_equals_the_eager_search(dev, graphs, B):
     ones at one shape, the capture's and the replays', gives the eager
     search's visit counts, policy and root Q bit for bit, on live, won and
     drawn roots (at B=1 one root a search; at B=128 with root noise)."""
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, params = _graph_model("connect4", dev)
     eval_fn = make_eval_fn(model, params)
     calls = CAPTURE_AT + 5
@@ -1539,7 +1545,8 @@ def test_move_graph_takes_each_searchs_params(dev, graphs):
     shape, then an in-place update of one weight (as a learner's step
     makes it); each search equals the eager one with its own weights, and
     a result kept from an earlier search is left as it was."""
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, p0 = _graph_model("connect4", dev, seed=0)
     _, _, p1 = _graph_model("connect4", dev, seed=1)
     players = [(p0, make_eval_fn(model, p0)), (p1, make_eval_fn(model, p1))]
@@ -1572,7 +1579,8 @@ def test_move_graph_capture_and_replay_under_the_profiler(dev, graphs):
     torch.profiler records the card, a ``search.graph`` span a replay, and
     the results the eager search's."""
     from torch.profiler import ProfilerActivity, profile
-    from alphazero_tpu_torch.models import CAPTURE_AT, make_eval_fn
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     from alphazero_tpu_torch.utils import profiling
     env, model, params = _graph_model("connect4", dev)
     eval_fn = make_eval_fn(model, params)

@@ -18,9 +18,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from alphazero_tpu_torch.config import ModelConfig
 from alphazero_tpu_torch.envs import make_env
-from alphazero_tpu_torch.models import (CAPTURE_AT, MAX_GRAPHS, Evaluator,
-                                        build_model, init_params,
+from alphazero_tpu_torch.models import (Evaluator, build_model, init_params,
                                         make_eval_fn)
+from alphazero_tpu_torch.ops.graphs import CAPTURE_AT, MAX_GRAPHS
 from alphazero_tpu_torch.parallel import TPViT
 from alphazero_tpu_torch.utils import profiling
 
@@ -56,11 +56,12 @@ def _eager(model, params, obs):
 class _Stub(Evaluator):
     """Engages on the CPU; its "graph" is the eager forward, replayed."""
 
-    def _engages(self, obs):
-        return self.graphable
+    def _engages(self, x):
+        return True
 
-    def _capture(self, obs):
-        return self.forward
+    def _capture(self, fn, device):
+        fn()                 # the warm-up, as on the card
+        return fn
 
 
 @pytest.mark.parametrize("family", sorted(MODELS))

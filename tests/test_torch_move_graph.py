@@ -21,8 +21,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from alphazero_tpu_torch.config import MCTSConfig, ModelConfig
 from alphazero_tpu_torch.envs import make_env
-from alphazero_tpu_torch.models import (CAPTURE_AT, MAX_GRAPHS, build_model,
-                                        init_params, make_eval_fn)
+from alphazero_tpu_torch.models import build_model, init_params, make_eval_fn
+from alphazero_tpu_torch.ops.graphs import CAPTURE_AT, MAX_GRAPHS
 from alphazero_tpu_torch.search import fused
 from alphazero_tpu_torch.search.stub import drawn_board
 from alphazero_tpu_torch.utils import profiling
@@ -34,12 +34,12 @@ class _Stub(fused.MoveGraphs):
     """Engages on the CPU; its "graph" is the eager chain, replayed, and
     its capture runs the chain once as the card's warm-up does."""
 
-    def _engages(self, board):
+    def _engages(self, x):
         return True
 
-    def _capture(self, chain, device):
-        chain()              # the warm-up runs on the entry, as on the card
-        return chain
+    def _capture(self, fn, device):
+        fn()                 # the warm-up runs on the entry, as on the card
+        return fn
 
 
 @pytest.fixture
