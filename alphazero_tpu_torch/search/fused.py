@@ -18,9 +18,9 @@ the tail of each move writes that of the next one.
 The move search (:func:`run_mcts_fused`, what the arena and the gate run)
 evaluates and mixes the root on the host, initialises the tree from that
 prior with finished games left unexpanded, runs the same S−1 simulations
-and returns the root counts, policy and root Q.  On the card, with its own
-forward, it replays those simulations as one CUDA graph per search shape
-(:class:`MoveGraphs`).
+and returns the root counts, policy and root Q.  On the card, with their
+own forward, both replay each move's simulations as one CUDA graph per
+search shape (:class:`MoveGraphs`).
 
 Both serve every game whose board and actions the kernels take, with the
 game's move rules (``env.rules``): connect4's gravity, tictactoe's empty
@@ -980,36 +980,68 @@ def _simulate(ops, env, cfg: MCTSConfig, tree: Tree, board, player, mc,
         ops.apply(tree, slot, probs, value)
 
 
+def _sims(ops, env, cfg: MCTSConfig, tree: Tree, board, player, mc,
+          evaluator, entry, restart):
+    """Simulations 1..S-1 of one move, a ``search.sims`` span: the eager
+    chain without an ``entry`` of :data:`MOVE_GRAPHS`, else the entry's
+    graph (a ``search.graph`` span), captured at the entry's first use.
+    The capture's warm-up runs the chain on the entry's tree, so
+    ``restart()`` then initialises its root again."""
+    with span("search.sims", cfg.num_simulations - 1):
+        if entry is None:
+            _simulate(ops, env, cfg, tree, board, player, mc, evaluator)
+            return
+        if entry.replay is None:
+            entry.replay = MOVE_GRAPHS.capture(functools.partial(
+                _simulate, ops, env, cfg, entry.tree, entry.board,
+                entry.player, entry.mc, entry.forward), entry.board.device)
+            restart()
+        MOVE_GRAPHS.replays += 1
+        with span("search.graph"):
+            entry.replay()
+
+
 def _chunk(ops, env, cfg: MCTSConfig, boards, players, move_counts, M: int,
-           noise, unif, evaluator):
+           noise, unif, evaluator, packed=None):
     B = boards.shape[0]
     A, F = env.action_dim, env.feature_dim
     R, C = env.rows, env.cols
     dev = boards.device
     S = cfg.num_simulations
     with span("search.prepare"):
-        board = boards.to(torch.int8).contiguous().clone()
-        player = players.to(torch.int32).contiguous().clone()
-        mc = move_counts.to(torch.int32).contiguous().clone()
+        board = boards.to(torch.int8).contiguous()
+        player = players.to(torch.int32).contiguous()
+        mc = move_counts.to(torch.int32).contiguous()
+        entry = (None if packed is None
+                 else MOVE_GRAPHS.entry(env, cfg, board, player, mc, packed))
+        if entry is None:
+            board, player, mc = board.clone(), player.clone(), mc.clone()
+            tree = Tree(env, B, S, dev)
+        else:
+            board, player, mc, tree = (entry.board, entry.player, entry.mc,
+                                       entry.tree)
         rec = {name: torch.zeros((M, B, A) if name == "policy" else (M, B),
                                  dtype=dt, device=dev)
                for name, dt in _REC_TYPES.items()}
         rec_obs = torch.zeros((M, B, F, R, C), dtype=torch.int8, device=dev)
-        tree = Tree(env, B, S, dev)
         # the first move's root; each tail writes the next one's
         obs = ops.root_obs(env, board, player, rec_obs[0]) if M else None
     for m in range(M):
         with span("search.move"):
             with span("search.root"):
                 probs0, value0 = evaluator(obs)
-                ops.root_init(env, cfg, tree, probs0, value0,
-                              noise[m] if cfg.use_dirichlet else None, board)
-            with span("search.sims", S - 1):
-                _simulate(ops, env, cfg, tree, board, player, mc, evaluator)
+                root = functools.partial(
+                    ops.root_init, env, cfg, tree, probs0, value0,
+                    noise[m] if cfg.use_dirichlet else None, board)
+                root()
+            _sims(ops, env, cfg, tree, board, player, mc, evaluator, entry,
+                  root)
             with span("search.finish"):
                 obs = ops.move_tail(env, cfg, tree, unif[m], board, player,
                                     mc, {k: v[m] for k, v in rec.items()},
                                     rec_obs[m + 1] if m + 1 < M else None)
+    if entry is not None:      # the next search at the key overwrites them
+        board, player, mc = board.clone(), player.clone(), mc.clone()
     out = dict(rec)
     out.update(obs=rec_obs, board=board, player_final=player, mc_final=mc)
     return out
@@ -1060,18 +1092,22 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
       board / player_final / mc_final  the state after M moves
 
     On CUDA every stage runs as a CUDA kernel; on the CPU the wrappers run
-    the plain versions.
+    the plain versions.  Without an ``evaluator`` the simulations on CUDA go
+    through :data:`MOVE_GRAPHS`, whose search shapes the move search
+    shares: from a shape's ``CAPTURE_AT``-th call on, every move replays
+    one CUDA graph of the same launches.  The returned tensors are fresh.
     """
     with span("search.prepare"):
         dev = resolve_device(device)
         boards, players, move_counts, noise, unif = _inputs(
             env, cfg, boards, players, move_counts, M, generator, noise,
             unif, dev)
+        packed = None
         if evaluator is None:
             packed = pack_dense_params(model, params, dev)
             evaluator = lambda obs: dense_forward(obs, packed)  # noqa: E731
     return _chunk(DISPATCH, env, cfg, boards, players, move_counts, M, noise,
-                  unif, evaluator)
+                  unif, evaluator, packed=packed)
 
 
 # ---------------------------------------------------------------------------
@@ -1080,8 +1116,8 @@ def run_selfplay_chunk(env, model, params, boards, players, move_counts,
 
 class _MoveEntry:
     """The fixed addresses of one key's captured simulations: its tree,
-    the search's board, player and move counts, the packed weights, and
-    the graph's replay (None until captured)."""
+    the board, player and move counts of the search or chunk, the packed
+    weights, and the graph's replay (None until captured)."""
 
     def __init__(self, env, S: int, board, player, mc, packed: dict):
         self.tree = Tree(env, board.shape[0], S, board.device)
@@ -1106,26 +1142,30 @@ class _MoveEntry:
 
 
 class MoveGraphs(GraphCache):
-    """The move search's simulations 1..S-1 replayed as one CUDA graph per
-    search shape.
+    """The simulations 1..S-1 of the move search and of the self-play
+    chunk replayed as one CUDA graph per search shape.
 
-    A search on CUDA tensors that runs the dense kernel's own forward
-    (``run_mcts_fused`` without an ``evaluator``) looks up its key: the
-    device, B, S, the game's geometry and rules, the formula, ``c_puct``
-    and the tower's widths, all that the captured launches bake in.  A
-    key's ``CAPTURE_AT``-th search captures the chain
-    (``ops.graphs.capture``) on a tree of the key's own, and that search
-    and every later one at the key copy their board, player, move counts
-    and packed weights to the entry's fixed addresses, initialise the
-    root on its tree (which resets it: every other row is rewritten
-    before it is read) and replay the graph, a ``search.graph`` span
-    inside ``search.sims``.  Every other search, and every search on the
-    CPU, runs the chain eagerly on a fresh tree.  The weights are copied
-    on every search, so a swapped or updated params dict is seen.  At most
-    ``MAX_GRAPHS`` keys are held.  ``captures`` and ``replays`` count the
-    graphs made and the searches that replayed one.  The process has one
-    cache, :data:`MOVE_GRAPHS`, so the searches of every caller at one
-    shape (the gate's two players, a game's agent moves) share an entry."""
+    A move search or a chunk on CUDA tensors that runs the dense kernel's
+    own forward (``run_mcts_fused`` or ``run_selfplay_chunk`` without an
+    ``evaluator``) looks up its key once a call: the device, B, S, the
+    game's geometry and rules, the formula, ``c_puct`` and the tower's
+    widths, all that the captured launches bake in (root noise and the
+    temperature act only on the eager root and tail).  A key's
+    ``CAPTURE_AT``-th call captures the chain (``ops.graphs.capture``) on
+    a tree of the key's own at its first move, and that call and every
+    later one at the key copy their board, player, move counts and packed
+    weights to the entry's fixed addresses, initialise the root on its
+    tree (which resets it: every other row is rewritten before it is read)
+    and replay the graph every move, a ``search.graph`` span inside
+    ``search.sims``; a chunk's root, root init and tail run eagerly on
+    the entry's board between its replays.  Every other call, and every
+    call on the CPU, runs the chain eagerly on a fresh tree.  The weights
+    are copied on every call, so a swapped or updated params dict is seen.
+    At most ``MAX_GRAPHS`` keys are held.  ``captures`` and ``replays``
+    count the graphs made and the moves that replayed one.  The process
+    has one cache, :data:`MOVE_GRAPHS`, so the calls of every caller at
+    one shape (the gate's two players, a game's agent moves, the
+    collector's chunks) share an entry and its count of calls."""
 
     @staticmethod
     def key(env, cfg: MCTSConfig, board, packed: dict) -> tuple:
@@ -1137,8 +1177,8 @@ class MoveGraphs(GraphCache):
                 packed["w1"].shape[0], tuple(packed["lines"].shape))
 
     def entry(self, env, cfg: MCTSConfig, board, player, mc, packed: dict):
-        """The key's entry with this search's inputs loaded, or None where
-        the search runs eagerly."""
+        """The key's entry with this call's inputs loaded, or None where
+        the call runs eagerly."""
         if not self._engages(board):
             return None
         e = self.lookup(self.key(env, cfg, board, packed),
@@ -1173,19 +1213,8 @@ def _move_tree(ops, env, cfg: MCTSConfig, eval_fn, boards, players,
         prior0, value0, live = root_prior(env, cfg, eval_fn, board, player,
                                           mc, dones, use_dirichlet, noise)
         ops.move_root_init(tree, prior0, value0, live)
-    with span("search.sims", S - 1):
-        if entry is None:
-            _simulate(ops, env, cfg, tree, board, player, mc, evaluator)
-        else:
-            if entry.replay is None:
-                entry.replay = MOVE_GRAPHS.capture(functools.partial(
-                    _simulate, ops, env, cfg, tree, entry.board,
-                    entry.player, entry.mc, entry.forward), board.device)
-                # the warm-up ran the chain on the tree: start it afresh
-                ops.move_root_init(tree, prior0, value0, live)
-            MOVE_GRAPHS.replays += 1
-            with span("search.graph"):
-                entry.replay()
+    _sims(ops, env, cfg, tree, board, player, mc, evaluator, entry,
+          functools.partial(ops.move_root_init, tree, prior0, value0, live))
     return tree
 
 

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before the final line):
      B=256, the batch each rank of phase 13a plays;
   4. the main path: ``Trainer(preset("connect4")).collect`` at full width
      with the real forward kernel, launch counts set to 0 before and read
-     after, checks on the games it produced, env-steps/s over >= 3 chunks;
+     after (the simulation kernels as the search graphs leave them,
+     ``chunk_launches``), checks on the games it produced, env-steps/s
+     over >= 3 chunks;
      and the device time of every kernel over one profiled chunk;
   5. each search kernel against its plain version on a snapshot of a
      main-path move, with times, and the launch geometry of the group
@@ -45,8 +47,9 @@ Phases (any failure exits non-zero before the final line):
   7. the main path's whole outer iteration,
      ``Trainer(preset("connect4")).iterate(vanilla_eval=False)``: launch
      counts set to 0 before and read after, and measured per phase
-     (collect, train, gate; the gate's simulation kernels as the move
-     search's graphs leave them, ``move_search_launches``); seconds of
+     (collect, train, gate; the simulation kernels as the search graphs
+     leave them, ``chunk_launches`` and ``move_search_launches``);
+     seconds of
      collect, train and gate, checks on
      the gate's searches, the score, the loss and the promote/revert
      bookkeeping; then one gate move (both agents) profiled;
@@ -96,8 +99,9 @@ Phases (any failure exits non-zero before the final line):
      B=256, S=50, M=4, empty and near-win boards mixed in; the move search
      bitwise at gomoku9 B=128, S=400 with live, won and drawn roots;
      ``Trainer(preset("gomoku9-dense")).iterate(vanilla_eval=False)`` at
-     full width, launch counts set to 0 before and measured per phase,
-     env-steps/s of its chunks, and checks on every move its chunks played
+     full width, launch counts set to 0 before and measured per phase (as
+     in phase 7), env-steps/s of its chunks, and checks on every move its
+     chunks played
      (legal, the first in the centre, a winner exactly where a line was
      completed); each search kernel against its plain version on that
      path's snapshots (B=256 and the gate's B=128) with times, bounds, the
@@ -474,17 +478,21 @@ def tree_clone(s):
     return s
 
 
-def counted_phases(obj, phases, kernels, split):
+def counted_phases(obj, phases, kernels, split, graphs=None):
     """Wrap the methods ``phases`` of ``obj`` so that each stores the
-    launches of ``kernels`` it made in ``split[phase]``."""
+    launches of ``kernels`` it made in ``split[phase]`` and, with
+    ``graphs``, the search graphs' counters it moved (``graphs_since``) in
+    ``graphs[phase]``."""
     def counts():
         return {k.name: k.launches for k in kernels}
 
     def wrap(phase, fn):
         def run(*a, **kw):
-            before = counts()
+            before, graphs0 = counts(), graph_counts()
             r = fn(*a, **kw)
             split[phase] = {n: c - before[n] for n, c in counts().items()}
+            if graphs is not None:
+                graphs[phase] = graphs_since(graphs0)
             return r
         return run
 
@@ -494,24 +502,49 @@ def counted_phases(obj, phases, kernels, split):
 
 
 def graph_counts():
-    """The move search's graph counters, ``(captures, replays)``."""
+    """The search graphs' counters (``fused.MOVE_GRAPHS``, the move
+    search's and the chunk's), ``(captures, replays)``."""
     from alphazero_tpu_torch.search import fused
     return fused.MOVE_GRAPHS.captures, fused.MOVE_GRAPHS.replays
 
 
-def move_search_launches(searches, S, before):
+def graphs_since(before):
+    """``(captures, replays)`` made since ``graph_counts()`` read
+    ``before``."""
+    return tuple(n - b for n, b in zip(graph_counts(), before))
+
+
+def move_search_launches(searches, S, graphs):
     """Launches of the move search's kernels that ``searches`` searches on
-    their own forward made since ``graph_counts()`` read ``before``.  Each
-    simulation kernel (descent, forward, apply): S-1 a search run eagerly,
-    none a search that replayed a graph, and 2(S-1) a capture (its warm-up
-    and the capture itself; the capturing search's own result is a
-    replay).  The root init: one a search and one more a capture (the
-    tree's reset after the warm-up); the root counts: one a search."""
-    captures, replays = (n - b for n, b in zip(graph_counts(), before))
+    their own forward made while they made ``graphs`` = ``(captures,
+    replays)``.  Each simulation kernel (descent, forward, apply): S-1 a
+    search run eagerly, none a search that replayed a graph, and 2(S-1) a
+    capture (its warm-up and the capture itself; the capturing search's
+    own result is a replay).  The root init: one a search and one more a
+    capture (the tree's reset after the warm-up); the root counts: one a
+    search."""
+    captures, replays = graphs
     chain = (searches - replays + 2 * captures) * (S - 1)
     return {"az_dense_forward": chain, "az_descend_leaf": chain,
             "az_apply": chain, "az_move_root_init": searches + captures,
             "az_root_counts": searches}
+
+
+def chunk_launches(chunks, M, S, graphs):
+    """Launches of the chunk's kernels that ``chunks`` chunks of M moves on
+    their own forward made while they made ``graphs`` = ``(captures,
+    replays)``, a replay a move.  The descent and the apply: S-1 a move run
+    eagerly, none a move that replayed a graph, and 2(S-1) a capture (as
+    in :func:`move_search_launches`); the forward the same plus one a move
+    (the root's).  The root init: one a move and one more a capture; the
+    first root observation one a chunk and the tail one a move."""
+    captures, replays = graphs
+    moves = chunks * M
+    chain = (moves - replays + 2 * captures) * (S - 1)
+    return {"az_dense_forward": chain + moves, "az_root_obs": chunks,
+            "az_root_init": moves + captures, "az_descend_leaf": chain,
+            "az_apply": chain, "az_move_tail": moves,
+            "az_move_root_init": 0, "az_root_counts": 0}
 
 
 def forward_by_batch(env, model, params, packed, batches, sweep, gen, dev):
@@ -2100,9 +2133,9 @@ def dense_games_phase(gen, dev):
 
     # ---- d. the path: one outer iteration at full width
     tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
-    split, trace, recs = {}, [], []
+    split, graphs, trace, recs = {}, {}, [], []
     launch_counts = counted_phases(tr, ("collect", "train_epoch", "gate"),
-                                   fused.KERNELS, split)
+                                   fused.KERNELS, split, graphs)
     real_chunk = selfplay.run_selfplay_chunk
 
     def captured_chunk(*a, **kw):
@@ -2121,7 +2154,6 @@ def dense_games_phase(gen, dev):
         traced_run_mcts
     for k in fused.KERNELS:
         k.launches = 0
-    graphs0 = graph_counts()
     try:
         it = tr.iterate(vanilla_eval=False)
     finally:
@@ -2132,15 +2164,10 @@ def dense_games_phase(gen, dev):
     M = cfg.train.selfplay_chunk_steps or 32
     searches = 2 * env.max_moves
     expect = {
-        "collect": {"az_dense_forward": chunks * M * S,
-                    "az_root_obs": chunks, "az_root_init": chunks * M,
-                    "az_descend_leaf": chunks * M * (S - 1),
-                    "az_apply": chunks * M * (S - 1),
-                    "az_move_tail": chunks * M, "az_move_root_init": 0,
-                    "az_root_counts": 0},
+        "collect": chunk_launches(chunks, M, S, graphs["collect"]),
         "train_epoch": {k: 0 for k in total},
         "gate": {k: 0 for k in total}}
-    expect["gate"].update(move_search_launches(searches, S, graphs0))
+    expect["gate"].update(move_search_launches(searches, S, graphs["gate"]))
     log(f"[gomoku9-dense iterate] Trainer(preset('gomoku9-dense'))"
         f".iterate(vanilla_eval=False): launches {total}; measured per "
         f"phase {split}")
@@ -2607,9 +2634,9 @@ def mesh_dp_rank(out):
         return sp, buf
 
     tr._runner = capture
-    split = {}
+    split, graphs = {}, {}
     counts = counted_phases(tr, ("collect", "train_epoch", "gate"),
-                            fused.KERNELS, split)
+                            fused.KERNELS, split, graphs)
     train_epoch = tr.train_epoch
 
     def train_and_keep():
@@ -2620,11 +2647,13 @@ def mesh_dp_rank(out):
     tr.train_epoch = train_and_keep
     for k in fused.KERNELS:
         k.launches = 0
-    graphs0 = graph_counts()
     it = tr.iterate(vanilla_eval=False)
     launches = counts()
-    gate_expect = move_search_launches(2 * tr.env.max_moves,
-                                       cfg.mcts.num_simulations, graphs0)
+    S = cfg.mcts.num_simulations
+    gate_expect = move_search_launches(2 * tr.env.max_moves, S,
+                                       graphs["gate"])
+    collect_expect = chunk_launches(len(it["chunk_seconds"]), M, S,
+                                    graphs["collect"])
     log(f"[mesh a] rank {mesh.rank}: iterate launches {launches}; per phase "
         f"{split}")
 
@@ -2669,6 +2698,7 @@ def mesh_dp_rank(out):
             "env_steps", "steps", "loss", "accepted", "gate_rate",
             "buffer_size", "chunk_seconds")},
         launches=launches, split=split, gate_expect=gate_expect,
+        collect_expect=collect_expect,
         chunks=len(it["chunk_seconds"]), M=M, same_first_chunk=same,
         local={"games": int(sp1.games_done - sp0.games_done),
                "env_steps": int(sp1.env_steps - sp0.env_steps),
@@ -2866,23 +2896,14 @@ def mesh_phase(dev, forward_held, chunk_held):
     root = Path(__file__).resolve().parent / "build" / "smoke_mesh"
     cfg = preset("connect4")
     env = make_env(cfg.env)
-    S = cfg.mcts.num_simulations
     summary = {}
 
     # ---- a. connect4, data=2
     ra = run_ranks("dp", 2, root / "a")
     r0, r1 = ra
-    M, Bl = r0["M"], r0["games_local"]
+    Bl = r0["games_local"]
     # what rank 0's gate searches launch, graphs and all
     gate = r0["gate_expect"]
-
-    def collect(chunks):
-        return {"az_dense_forward": chunks * M * S, "az_root_obs": chunks,
-                "az_root_init": chunks * M,
-                "az_descend_leaf": chunks * M * (S - 1),
-                "az_apply": chunks * M * (S - 1),
-                "az_move_tail": chunks * M, "az_move_root_init": 0,
-                "az_root_counts": 0}
 
     def same(a, b):
         return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
@@ -2904,7 +2925,7 @@ def mesh_phase(dev, forward_held, chunk_held):
         f"versions at the rank's B={Bl} (phases 2-3)": Bl in forward_held
         and Bl in chunk_held,
         "collect launches: the chunk kernels, every chunk, each rank": all(
-            r["split"]["collect"] == collect(r["chunks"]) for r in ra),
+            r["split"]["collect"] == r["collect_expect"] for r in ra),
         "the learner launches no search kernel": all(
             not any(r["split"]["train_epoch"].values()) for r in ra),
         "the gate plays on rank 0 only": r0["split"]["gate"] == {
@@ -3304,14 +3325,12 @@ def main():
     tr = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     for k in fused.KERNELS:
         k.launches = 0
+    graphs0 = graph_counts()
     m = tr.collect(games_target=2 * B)
     launches = {k.name: k.launches for k in fused.KERNELS}
     chunks = len(m["chunk_seconds"])
     M = cfg.train.selfplay_chunk_steps or 32
-    expect = {"az_dense_forward": chunks * M * S, "az_root_obs": chunks,
-              "az_root_init": chunks * M, "az_descend_leaf": chunks * M * (S - 1),
-              "az_apply": chunks * M * (S - 1), "az_move_tail": chunks * M,
-              "az_move_root_init": 0, "az_root_counts": 0}
+    expect = chunk_launches(chunks, M, S, graphs_since(graphs0))
     log(f"[main path] Trainer(preset('connect4')).collect: {chunks} chunks of "
         f"{M} moves, {m['games']} games, launches {launches}")
     if launches != expect:
@@ -3419,10 +3438,10 @@ def main():
     # ---- 7. the main path's outer iteration
     tr7 = Trainer(cfg, device="cuda", logger=MetricsLogger(stdout=False))
     init7 = {k: v.clone() for k, v in tr7.params_best.items()}
-    trace, split = [], {}
+    trace, split, graphs = [], {}, {}
 
     launch_counts = counted_phases(tr7, ("collect", "train_epoch", "gate"),
-                                   fused.KERNELS, split)
+                                   fused.KERNELS, split, graphs)
 
     def traced_run_mcts(env_, eval_fn, boards, players, mcs, dones, cfg_,
                         **kw):
@@ -3433,7 +3452,6 @@ def main():
     arena.run_mcts = traced_run_mcts
     for k in fused.KERNELS:
         k.launches = 0
-    graphs0 = graph_counts()
     try:
         it = tr7.iterate(vanilla_eval=False)
     finally:
@@ -3441,11 +3459,10 @@ def main():
     launches7 = launch_counts()
     chunks7 = len(it["chunk_seconds"])
     searches = 2 * env.max_moves             # both agents, every gate move
-    gate_launches = move_search_launches(searches, S, graphs0)
-    expect7 = {}
-    for name in launches7:
-        expect7[name] = (expect[name] // chunks * chunks7
-                         + gate_launches.get(name, 0))
+    gate_launches = move_search_launches(searches, S, graphs["gate"])
+    collect7 = chunk_launches(chunks7, M, S, graphs["collect"])
+    expect7 = {name: collect7[name] + gate_launches.get(name, 0)
+               for name in launches7}
     log(f"[iterate] Trainer(preset('connect4')).iterate(vanilla_eval=False): "
         f"launches {launches7}; measured per phase {split}")
     if launches7 != expect7:

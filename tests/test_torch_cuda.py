@@ -1602,3 +1602,68 @@ def test_move_graph_capture_and_replay_under_the_profiler(dev, graphs):
     for r, g in zip(roots, got):
         _, want = _move_both(env, model, params, eval_fn, r, cfg, dev)
         _same_search(g, want)
+
+
+def _chunk_roots(env, B, seed, dev):
+    """B live chunk roots: random legal play stopped at each game's own
+    length, finished games reset to an empty board, as the collector hands
+    them in."""
+    g = torch.Generator().manual_seed(seed)
+    st = env.init(B)
+    target = torch.randint(0, 16, (B,), generator=g)
+    for t in range(16):
+        mask = (env.valid_mask(st) & (t < target)[:, None]
+                & ~st.done[:, None])
+        act = torch.where(mask, torch.rand(mask.shape, generator=g), -1.0
+                          ).argmax(-1).to(torch.int32)
+        nxt = env.step(st, act)
+        live = mask.any(-1)
+        st = type(st)(*(torch.where(
+            live.reshape((B,) + (1,) * (getattr(st, f).dim() - 1)),
+            getattr(nxt, f), getattr(st, f)) for f in vars(st)))
+    board = torch.where(st.done[:, None, None, None], 0, st.board)
+    player = torch.where(st.done, 0, st.current_player).to(torch.int32)
+    mc = torch.where(st.done, 0, st.move_count).to(torch.int32)
+    return board.to(dev), player.to(dev), mc.to(dev)
+
+
+@pytest.mark.parametrize("name,B,M", [("connect4", 512, 4),
+                                      ("gomoku9-dense", 32, 2)])
+def test_chunk_graph_equals_the_eager_chunk(dev, graphs, name, B, M):
+    """The collector's chunk on its own forward: every call of a run at
+    one shape, the eager ones, the capture's and the replays', gives the
+    records and final state of the same chunk run eagerly with the dense
+    kernel passed as the ``evaluator``, bit for bit, with root noise and
+    temperature sampling (connect4's preset tower at self-play's B=512 and
+    S=200; gomoku9-dense's at B=32 and S=400, a second key).  The key's
+    CAPTURE_AT-th call captures and every move from then on replays; a
+    replayed chunk's result is left as it was by the next call."""
+    from alphazero_tpu_torch.config import preset
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
+    env, model, params = _graph_model(name, dev)
+    cfg = preset(name).mcts
+    assert cfg.use_dirichlet and cfg.temperature_moves > 0
+    packed = fused.pack_dense_params(model, params, dev)
+    kept = None
+    for k in range(CAPTURE_AT + 2):
+        roots = _chunk_roots(env, B, 80 + k, dev)
+        g = torch.Generator(device=dev).manual_seed(90 + k)
+        draws = dict(
+            noise=fused.dirichlet_noise(M, env.action_dim, B,
+                                        cfg.dirichlet_alpha, g, dev),
+            unif=torch.rand((M, B), generator=g, device=dev))
+        got = fused.run_selfplay_chunk(env, model, params, *roots, cfg, M,
+                                       device=dev, **draws)
+        want = fused.run_selfplay_chunk(
+            env, model, params, *roots, cfg, M, device=dev,
+            evaluator=lambda o: fused.dense_forward(o, packed), **draws)
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (k, key)
+        assert graphs.captures == int(k + 1 >= CAPTURE_AT)
+        assert graphs.replays == M * max(0, k + 2 - CAPTURE_AT)
+        if k + 1 == CAPTURE_AT:
+            kept = (got, {n: v.clone() for n, v in got.items()})
+    torch.cuda.synchronize()
+    for n, c in kept[1].items():
+        assert torch.equal(kept[0][n], c), n
