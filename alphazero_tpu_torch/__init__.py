@@ -8,9 +8,11 @@ against a plain PyTorch version of the same function.
 
 Ported so far: every TPU kernel of the JAX package and the outer
 iteration, ``training.loop.Trainer.iterate``, for the dense tower (connect4,
-gomoku), the conv ResNet (tictactoe, connect4, gomoku) and the ViT (gomoku
-7×7, with dropout in the learner and depth surgery), driven by the command
-line ``python -m alphazero_tpu_torch train|eval|play|bench`` (``cli.py``):
+gomoku), the conv ResNet (tictactoe, connect4, gomoku), AlphaZero's
+batch-norm ResNet (``gomoku15-alphazero``; the port's own) and the ViT
+(gomoku 7×7, with dropout in the learner and depth surgery), driven by the
+command line ``python -m alphazero_tpu_torch train|eval|play|bench``
+(``cli.py``):
 self-play collection (``collect`` → ``training.selfplay``: the dense
 tower's whole-chunk search ``search.fused.run_selfplay_chunk``, or one
 ``selfplay_step`` per move), the learner (``train_epoch`` →
@@ -33,7 +35,7 @@ Layer map:
                JAX script (``scripts/train_*.py``, ``validate_learning.py``)
   config.py  — configuration dataclasses, presets, ``config.json``
   envs/      — batched game rules on tensors
-  models/    — the dense tower, the conv ResNet and the ViT,
+  models/    — the dense tower, the conv ResNets and the ViT,
                ``make_eval_fn``, depth surgery (``models.surgery``)
   search/    — MCTS: the whole-chunk self-play and move searches, the
                per-simulation engine (kernels + plain versions), the

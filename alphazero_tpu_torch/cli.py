@@ -98,8 +98,11 @@ def _run_cfg(cfg, workdir):
 def cmd_train(args):
     if not args.mesh:
         return _train(args, None)
+    from alphazero_tpu_torch.config import preset
     from alphazero_tpu_torch.parallel import distributed
+    from alphazero_tpu_torch.training.spmd_loop import check_family
 
+    check_family(_apply_overrides(preset(args.preset), args))
     shape = _parse_mesh(args.mesh)
     if not distributed.initialize(args.coordinator, args.num_processes,
                                   args.process_id, args.device):
@@ -291,14 +294,14 @@ def _parser():
     t.add_argument("--lr", type=float, default=None,
                    help="override the preset's Adam learning rate")
     t.add_argument("--model-family", dest="model_family", default=None,
-                   choices=["vit", "resnet", "dense"],
+                   choices=["vit", "resnet", "resnet_bn", "dense"],
                    help="override the preset's net family")
     t.add_argument("--model-width", dest="model_width", type=int,
                    default=None, help="dense-family width override")
     t.add_argument("--model-blocks", dest="model_blocks", type=int,
-                   default=None, help="dense/resnet blocks override")
+                   default=None, help="dense/resnet/resnet_bn blocks override")
     t.add_argument("--model-channels", dest="model_channels", type=int,
-                   default=None, help="resnet channels override")
+                   default=None, help="resnet/resnet_bn channels override")
     t.add_argument("--model-embed-dim", dest="model_embed_dim", type=int,
                    default=None, help="vit embed dim override")
     t.add_argument("--model-depth", dest="model_depth", type=int,

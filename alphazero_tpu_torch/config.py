@@ -43,10 +43,12 @@ class MCTSConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Policy/value network: the ViT (``'vit'``, embedding, depth, patch,
-    heads, dropout), the conv ResNet (``'resnet'``, channels, blocks) or
-    the dense tower (``'dense'``, width, blocks)."""
+    heads, dropout), the LayerNorm conv ResNet (``'resnet'``, channels,
+    blocks), AlphaZero's batch-norm conv ResNet (``'resnet_bn'``,
+    channels, blocks; the port's own) or the dense tower (``'dense'``,
+    width, blocks)."""
 
-    family: str = "vit"  # 'vit' | 'resnet' | 'dense'
+    family: str = "vit"  # 'vit' | 'resnet' | 'resnet_bn' | 'dense'
     embed_dim: int = 512
     patch_size: int = 5
     num_heads: int = 8
@@ -183,6 +185,21 @@ def preset(name: str) -> Config:
             model=ModelConfig(family="resnet", channels=192, blocks=10),
             train=TrainConfig(batch_size=1024, selfplay_batch=256,
                               games_per_iter=256),
+            replay=ReplayConfig(capacity=500_000),
+        ),
+        # AlphaZero's network and search (Silver et al., Science 2018) on
+        # gomoku 15x15: the 19x256 batch-norm tower, 800 simulations, 30
+        # visit-sampled moves, no gate; one self-play move a chunk.  The
+        # port's own: the JAX package has no batch-norm tower.
+        "gomoku15-alphazero": Config(
+            env="gomoku15",
+            mcts=MCTSConfig(num_simulations=800, formula="alphazero",
+                            c_puct=1.25, dirichlet_eps=0.25,
+                            dirichlet_alpha=0.03, temperature_moves=30),
+            model=ModelConfig(family="resnet_bn", channels=256, blocks=19),
+            train=TrainConfig(batch_size=1024, selfplay_batch=256,
+                              games_per_iter=256, gate_enabled=False,
+                              selfplay_chunk_steps=1),
             replay=ReplayConfig(capacity=500_000),
         ),
         # the reference production setup (gomoku 7x7, ViT 512 depth 1)

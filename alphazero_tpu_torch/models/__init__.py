@@ -1,5 +1,6 @@
 """Policy/value networks and evaluator adapters: the dense tower, the
-convolutional ResNet and the Vision Transformer."""
+convolutional ResNets (LayerNorm and AlphaZero's batch norm) and the
+Vision Transformer."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from torch.func import functional_call
 from alphazero_tpu_torch.config import ModelConfig
 from alphazero_tpu_torch.models import dense, resnet, vit
 from alphazero_tpu_torch.models.dense import DenseTower
-from alphazero_tpu_torch.models.resnet import ResNet
+from alphazero_tpu_torch.models.resnet import ResNet, ResNetBN
 from alphazero_tpu_torch.models.vit import ViT
 from alphazero_tpu_torch.ops.graphs import GraphCache
 from alphazero_tpu_torch.ops.resnet_tower import (make_fused_apply,
@@ -20,8 +21,8 @@ from alphazero_tpu_torch.utils.profiling import span
 
 
 def build_model(cfg: ModelConfig, env):
-    """The configured network (``"vit"``, ``"resnet"`` or ``"dense"``) for
-    an env's geometry."""
+    """The configured network (``"vit"``, ``"resnet"``, ``"resnet_bn"`` or
+    ``"dense"``) for an env's geometry."""
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.family == "vit":
         return ViT(
@@ -34,8 +35,9 @@ def build_model(cfg: ModelConfig, env):
             rows=env.rows, cols=env.cols, action_dim=env.action_dim,
             channels_in=env.feature_dim, win_len=env.win_len,
             width=cfg.width, blocks=cfg.blocks, dtype=dtype)
-    if cfg.family == "resnet":
-        return ResNet(
+    if cfg.family in ("resnet", "resnet_bn"):
+        net = ResNet if cfg.family == "resnet" else ResNetBN
+        return net(
             rows=env.rows, cols=env.cols, action_dim=env.action_dim,
             channels_in=env.feature_dim, channels=cfg.channels,
             blocks=cfg.blocks, dtype=dtype)
@@ -45,8 +47,11 @@ def build_model(cfg: ModelConfig, env):
 def init_params(model, generator: torch.Generator) -> dict:
     """Fresh parameters drawn as flax initialises them: truncated-normal
     LeCun kernels (fan-in scaling, the fan-in of a conv kernel being
-    ``in·kh·kw``), zero biases, unit LayerNorm scales, and the ViT's CLS
-    token and position embedding from an untruncated normal(1.0)."""
+    ``in·kh·kw``), zero biases, unit LayerNorm and batch-norm scales, and
+    the ViT's CLS token and position embedding from an untruncated
+    normal(1.0); then the network's state, its persistent float buffers
+    (batch norm's running statistics), as the module made them (means 0,
+    variances 1), in the same dict."""
     out = {}
     for name, p in model.named_parameters():
         if name in ("cls_token", "pos_embed"):
@@ -64,6 +69,9 @@ def init_params(model, generator: torch.Generator) -> dict:
             torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                         generator=generator)
             out[name] = (w * std).to(p.device)
+    for name, t in model.state_dict(keep_vars=True).items():
+        if name not in out and t.is_floating_point():
+            out[name] = t.detach().clone()
     return out
 
 
@@ -108,8 +116,10 @@ class Evaluator(GraphCache):
     the forward eagerly.  The replayed kernels are the eager ones.
     Outputs are always fresh tensors: a caller may keep them past the next
     call.  The graph reads the parameter tensors the evaluator was built
-    with at their addresses: an in-place update of one is seen, a tensor
-    put in its place in ``params`` is not.  Each evaluator is its own
+    with at their addresses (the state, batch norm's running statistics,
+    among them): an in-place update of one is seen, a tensor put in its
+    place in ``params`` is not.  The ``model.forward`` span carries the
+    call's rows as its ``n``.  Each evaluator is its own
     :class:`~alphazero_tpu_torch.ops.graphs.GraphCache`, keyed by the
     input's shape, dtype and device; ``captures`` and ``replays`` count
     the graphs made and the calls that replayed one."""
@@ -126,7 +136,7 @@ class Evaluator(GraphCache):
 
     @torch.no_grad()
     def __call__(self, obs):
-        with span("model.forward"):
+        with span("model.forward", obs.shape[0]):
             graph = None
             if self.graphable and self._engages(obs):
                 graph = self.lookup((tuple(obs.shape), obs.dtype, obs.device),
@@ -162,7 +172,7 @@ def make_eval_fn(model, params: dict, fused_resnet: bool = False):
         packed = apply.pack(params)
 
         def fused_eval_fn(obs):
-            with span("model.forward"):
+            with span("model.forward", obs.shape[0]):
                 logits, value = apply.apply_packed(packed, obs)
                 return torch.softmax(logits, dim=-1), value
 
@@ -174,5 +184,5 @@ def make_eval_fn(model, params: dict, fused_resnet: bool = False):
     return eval_fn
 
 
-__all__ = ["DenseTower", "Evaluator", "ResNet", "ViT", "build_model",
-           "init_params", "make_eval_fn", "params_from_flax"]
+__all__ = ["DenseTower", "Evaluator", "ResNet", "ResNetBN", "ViT",
+           "build_model", "init_params", "make_eval_fn", "params_from_flax"]

@@ -318,7 +318,11 @@ def supports_fused_resnet(model) -> bool:
     when opted in: its shape arithmetic (``ops/pallas_resnet.py``
     ``supports_fused_resnet``), without the environment read and the
     platform check.  Channels a multiple of 8 and at least 64, and the
-    weights plus one 128-lane-aligned block of activations within 75 MB."""
+    weights plus one 128-lane-aligned block of activations within 75 MB.
+    The kernel computes the LayerNorm tower: a tower without its
+    LayerNorms (``models.resnet.ResNetBN``) is refused."""
+    if not hasattr(model, "stem_ln"):
+        return False
     C = model.channels
     if C % 8 or C < 64:
         return False

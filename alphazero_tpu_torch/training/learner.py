@@ -2,8 +2,13 @@
 
 Counterpart of the JAX package's ``training/learner.py``.  Loss = soft-target
 policy cross-entropy + value MSE + ``l2_coeff`` · Σw² over every parameter
-not named ``bias`` (LayerNorm scales and the ViT's embeddings included, as
-in the JAX package).  The network runs under autograd through
+not named ``bias`` (LayerNorm and batch-norm scales and the ViT's
+embeddings included, as in the JAX package).  A network's state (batch
+norm's running statistics, :func:`is_state`) rides in the same dict but is
+no parameter: it has no gradient, no Adam slot and no L2.  The
+batch-norm tower's training forward (``ResNetBN(..., train=True)``, which
+normalises by the batch's statistics) updates it in place, outside
+autograd.  The network runs under autograd through
 ``functional_call``, in plain PyTorch: the JAX learner runs no Pallas
 kernel.  The ViT trains with dropout on, its masks drawn from an explicit
 ``dropout_generator`` (the JAX learner's ``dropout_rng``); the dense tower
@@ -31,6 +36,7 @@ from torch.func import functional_call
 
 from alphazero_tpu_torch.config import TrainConfig
 from alphazero_tpu_torch.data.replay import ReplayBuffer, sample
+from alphazero_tpu_torch.models.resnet import ResNetBN
 from alphazero_tpu_torch.models.vit import ViT
 from alphazero_tpu_torch.parallel.distributed import all_reduce
 
@@ -42,11 +48,18 @@ class TrainMetrics(NamedTuple):
     l2: torch.Tensor
 
 
+def is_state(name: str) -> bool:
+    """Whether the entry ``name`` of a parameter dict is a network's state
+    (batch norm's running statistics) rather than a trained parameter."""
+    return name.rsplit(".", 1)[-1] in ("running_mean", "running_var")
+
+
 def l2_penalty(params: dict) -> torch.Tensor:
-    """Σ w² over all parameters except those named ``bias``."""
+    """Σ w² over all parameters except those named ``bias``, and not over
+    the state."""
     total = 0.0
     for name, w in params.items():
-        if name.rsplit(".", 1)[-1] == "bias":
+        if name.rsplit(".", 1)[-1] == "bias" or is_state(name):
             continue
         total = total + (w.to(torch.float32) ** 2).sum()
     return total
@@ -55,9 +68,12 @@ def l2_penalty(params: dict) -> torch.Tensor:
 def loss_fn(model, params: dict, obs, policy_target, value_target,
             l2_coeff: float, dropout_generator=None):
     """``(loss, TrainMetrics)`` of one batch; ``dropout_generator`` turns
-    the ViT's dropout on (families without dropout ignore it)."""
+    the ViT's dropout on (families without dropout ignore it).  The
+    batch-norm tower runs in training mode: it normalises by the batch's
+    statistics and updates the state in ``params`` in place."""
     kw = ({"dropout_generator": dropout_generator}
-          if isinstance(model, ViT) else {})
+          if isinstance(model, ViT) else
+          {"train": True} if isinstance(model, ResNetBN) else {})
     logits, value = functional_call(model, params, (obs,), kw)
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     policy_loss = (-policy_target * logp).sum(-1).mean()
@@ -68,7 +84,9 @@ def loss_fn(model, params: dict, obs, policy_target, value_target,
 
 
 def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.Adam:
-    return torch.optim.Adam(list(params.values()), lr=cfg.learning_rate)
+    """Adam over the parameters of ``params`` (not the state)."""
+    return torch.optim.Adam([p for k, p in params.items()
+                             if not is_state(k)], lr=cfg.learning_rate)
 
 
 def _mesh_mean(model, params: dict, metrics: TrainMetrics, l2_coeff: float,
@@ -97,8 +115,9 @@ def train_step(model, params: dict, opt, obs, policy_target, value_target,
                l2_coeff: float, dropout_generator=None,
                mesh=None) -> TrainMetrics:
     """One Adam step on one batch; ``params`` are leaf tensors that require
-    grad and that ``opt`` updates in place.  With a mesh the batch is this
-    rank's share and the step the data group's mean."""
+    grad and that ``opt`` updates in place, and the state, which the
+    forward updates in place.  With a mesh the batch is this rank's share
+    and the step the data group's mean."""
     opt.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(model, params, obs, policy_target, value_target,
                             l2_coeff, dropout_generator)
@@ -129,8 +148,9 @@ def train_chunk(model, params: dict, opt, buffer: ReplayBuffer,
 
 
 def leaf_copies(params: dict) -> dict:
-    """Copies of ``params`` that require grad, for an optimizer to own."""
-    return {k: v.detach().clone().requires_grad_(True)
+    """Copies of ``params`` for an optimizer to own: the parameters'
+    require grad, the state's do not."""
+    return {k: v.detach().clone().requires_grad_(not is_state(k))
             for k, v in params.items()}
 
 

@@ -8,11 +8,14 @@ Collection doubles after ``reject_double_after`` rejections in a row, and
 every ``vanilla_eval_every`` promotions the best parameters play a sanity
 match against vanilla (rollout) search.  Every family trains: the dense
 tower collects through the whole-chunk search, the ResNet and the ViT move
-by move on the per-simulation engine (the ResNet's forward the fused tower
-kernel with ``fused_resnet``; the learner keeps the module forward, the
-ViT's with dropout on).  :meth:`Trainer.expand_depth` grows a ViT's depth
-in place.  Every phase logs a
-JSON-line record (``collect``, ``train``, ``gate``, ``vanilla_eval``,
+by move on the per-simulation engine (the LayerNorm ResNet's forward the
+fused tower kernel with ``fused_resnet``; the learner keeps the module
+forward, the ViT's with dropout on, the batch-norm ResNet's with the
+batch's statistics).  A network's state (batch norm's running statistics)
+is part of each parameter dict: it rides in ``params_best`` and
+``params_new``, their copies, the gate's agents and the checkpoints.
+:meth:`Trainer.expand_depth` grows a ViT's depth in place.  Every phase
+logs a JSON-line record (``collect``, ``train``, ``gate``, ``vanilla_eval``,
 ``iteration``, with the JAX package's field names); with a ``workdir`` the
 run's ``config.json`` is written there and every promotion saves a
 checkpoint (``utils/checkpoint.py``) of both parameter sets, the replay

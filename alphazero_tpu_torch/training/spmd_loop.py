@@ -21,6 +21,10 @@ semantics of ``Trainer``:
   plays the match with the gate generator and broadcasts the score, so
   every rank makes the same promote/revert decision; the gate fails while
   a ring is empty;
+* the batch-norm tower (``resnet_bn``) is refused (:func:`check_family`):
+  each data rank would normalise by its own share of the batch and keep
+  running statistics of its own, and synchronised batch norm is not
+  implemented;
 * rank 0 alone prints metrics and writes ``config.json`` and checkpoints.
   A checkpoint holds the full parameters, every data rank's ring stacked
   in the JAX package's sharded layout (``data/replay.py:stack_shards``)
@@ -61,6 +65,16 @@ from alphazero_tpu_torch.utils.metrics import MetricsLogger
 GENERATORS = ("generator", "dropout_generator", "gate_generator")
 
 
+def check_family(cfg: Config):
+    """Raise ``ValueError`` for a network the mesh does not train."""
+    if cfg.model.family == "resnet_bn":
+        raise ValueError(
+            "--mesh does not train the batch-norm tower (model family "
+            "'resnet_bn'): each data rank would normalise by its own share "
+            "of the batch and keep running statistics of its own; "
+            "synchronised batch norm across ranks is not implemented")
+
+
 class SpmdTrainer(Trainer):
     """``Trainer`` on one rank of ``mesh`` (default: every rank of the
     process group, ``model=cfg.mesh.model_parallel``).  ``device`` defaults
@@ -73,6 +87,7 @@ class SpmdTrainer(Trainer):
                  device=None, workdir: Optional[str] = None,
                  logger: Optional[MetricsLogger] = None,
                  display: bool = False, fused_resnet: bool = False):
+        check_family(cfg)
         self.mesh = mesh = mesh or make_mesh(n_model=cfg.mesh.model_parallel)
         n = mesh.n_data
         for what, size in (("selfplay_batch", cfg.train.selfplay_batch),

@@ -1354,12 +1354,14 @@ def _graph_obs(env, B, seed, dev):
 
 @pytest.mark.parametrize("name,B", [("gomoku7-reference", 256),
                                     ("gomoku7-reference", 1),
-                                    ("connect4", 1)])
+                                    ("connect4", 1),
+                                    ("gomoku15-alphazero", 256)])
 def test_graphed_evaluator_equals_the_eager_forward(dev, name, B):
     """From the shape's CAPTURE_AT-th call on, the evaluator replays a CUDA
     graph, whose outputs equal the eager forward's bit for bit: the ViT of
     ``gomoku7-reference`` at self-play's B=256 and at B=1, the connect4
-    dense tower at the root's B=1."""
+    dense tower at the root's B=1, AlphaZero's 19×256 batch-norm tower at
+    self-play's B=256."""
     from alphazero_tpu_torch.models import make_eval_fn
     from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
     env, model, params = _graph_model(name, dev)
@@ -1412,6 +1414,57 @@ def test_graph_sees_an_in_place_parameter_update(dev):
     assert torch.equal(p, want_p) and torch.equal(v, want_v)
     assert not torch.equal(p, before[0])
     assert ev.replays == 2
+
+
+def test_graph_sees_an_in_place_running_statistic_update(dev):
+    """AlphaZero's tower folds its batch norms inside the forward, so the
+    replayed graph reads a running statistic updated in place."""
+    from alphazero_tpu_torch.models import make_eval_fn
+    from alphazero_tpu_torch.ops.graphs import CAPTURE_AT
+    env, model, params = _graph_model("gomoku15-alphazero", dev)
+    ev = make_eval_fn(model, params)
+    obs = _graph_obs(env, 256, 7, dev)
+    for _ in range(CAPTURE_AT):
+        before = ev(obs)
+    assert ev.captures == 1
+    with torch.no_grad():
+        params["block_3.bn2.running_var"].mul_(4.0)
+        params["block_3.bn2.running_mean"].add_(0.5)
+    p, v = ev(obs)
+    with torch.no_grad():
+        want_p, want_v = ev.forward(obs)
+    assert torch.equal(p, want_p) and torch.equal(v, want_v)
+    assert not torch.equal(p, before[0])
+    assert ev.replays == 2
+
+
+def test_resnet_bn_bf16_forward_within_the_cells_logit_gap(dev):
+    """AlphaZero's tower at its widths (256 × 19, gomoku15, B=256, bf16,
+    batch norm folded into the convolutions), its state calibrated by the
+    float32 reference on 512 positions, against the float32 reference on
+    the card (the unfolded product, no cuDNN): the mean widest logit gap
+    lies within the ``gomoku15-alphazero.selfplay-deep`` cell's limit."""
+    import json
+    import pathlib
+    from alphazero_tpu_torch.models import make_eval_fn
+    from azbench import check, harness
+    from azbench.reference import games, nets
+    root = pathlib.Path(__file__).resolve().parents[1]
+    limit = json.loads((root / "azbench" / "workloads" /
+                        "gomoku15-alphazero.selfplay-deep.json").read_text())[
+        "limits"]["logit_gap"]
+    env, model, params = _graph_model("gomoku15-alphazero", dev, seed=3)
+    g = games.game("gomoku15")
+    spec = {"family": "resnet_bn", "channels": 256, "blocks": 19}
+    calib = harness.random_positions(
+        g, 512, torch.Generator(device=dev).manual_seed(4), dev)
+    params.update(nets.Net(spec, g, params).state(calib))
+    obs = harness.random_positions(
+        g, 256, torch.Generator(device=dev).manual_seed(5), dev)
+    probs, value = make_eval_fn(model, params)(obs)
+    gaps = torch.cat(check.logit_gaps(nets.Net(spec, g, params),
+                                      [(obs, probs, value)]))
+    assert float(gaps.mean()) < limit, float(gaps.mean())
 
 
 def test_graph_capture_and_replay_under_the_profiler(dev):

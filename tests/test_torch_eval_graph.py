@@ -30,6 +30,8 @@ MODELS = {
     "dense": ("connect4", ModelConfig(family="dense", width=64, blocks=1)),
     "resnet": ("tictactoe", ModelConfig(family="resnet", channels=16,
                                         blocks=1)),
+    "resnet_bn": ("tictactoe", ModelConfig(family="resnet_bn", channels=16,
+                                           blocks=1)),
 }
 
 
@@ -150,4 +152,22 @@ def test_stub_spans_one_graph_span_a_replay():
                 if s.name == "model.forward"}
     assert all(s.parent in forwards for s in profiling.spans()
                if s.name == "model.graph")
+    profiling.reset()
+
+
+def test_forward_span_carries_the_rows():
+    """Each ``model.forward`` span, eager, capturing or replayed, carries
+    its call's rows as ``n``, the count ``forward_roofline.selfplay``
+    reads."""
+    env, model, params = _model("resnet_bn")
+    ev = _Stub(model, params)
+    rows = [3, 5, 3, 3, 3]
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for k, B in enumerate(rows):
+            ev(_obs(env, B, k))
+    t = profiling.totals()
+    assert ev.replays == 2
+    assert t["model.forward"][0] == len(rows)
+    assert t["model.forward"][3] == sum(rows)
     profiling.reset()
